@@ -17,7 +17,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .layers import ConvBNReLU, DeconvBNReLU, conv_bn_relu
+from .layers import ConvBNReLU, DeconvBNReLU, SplitInputConv2d, conv_bn_relu
 
 
 class RPN(nn.Module):
@@ -36,7 +36,7 @@ class RPN(nn.Module):
             # explicit pad + unpadded conv: the reference's stem structure
             layers = [nn.ZeroPad2d(1),
                       *conv_bn_relu(cin, c, 3, ds_strides[i], bias=False,
-                                    padding=0)]
+                                    padding=0, conv=SplitInputConv2d)]
             for _ in range(n):
                 layers += conv_bn_relu(c, c, 3, 1, bias=False)
             blocks.append(nn.Sequential(*layers))

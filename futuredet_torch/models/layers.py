@@ -11,19 +11,44 @@ import math
 from typing import List
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; flax momentum 0.99
 
 
+class SplitInputConv2d(nn.Conv2d):
+    """A Conv2d computed as the sum of convs over groups of at most
+    MAX_CIN input channels (the same parameters and keys as Conv2d).
+
+    cuDNN's heuristics (torch 2.11, CUDA 12.8, fp32 without TF32) pick an
+    FFT algorithm for the 256 -> 128 3x3 conv at 180x180, the stem of the
+    VoxelNet RPN: 167-250 ms and a 16.7 GB workspace on an H100, where the
+    same conv as two 128-channel convs takes 0.5 ms
+    (scripts/torch_probe_stem.py)."""
+    MAX_CIN = 128
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.in_channels <= self.MAX_CIN or self.groups != 1:
+            return super().forward(x)
+        out = None
+        for c0 in range(0, self.in_channels, self.MAX_CIN):
+            y = F.conv2d(x[:, c0:c0 + self.MAX_CIN],
+                         self.weight[:, c0:c0 + self.MAX_CIN], None,
+                         self.stride, self.padding, self.dilation)
+            out = y if out is None else out + y
+        return out if self.bias is None else out + self.bias[:, None, None]
+
+
 def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 bias: bool = True, padding: int = None) -> List[nn.Module]:
-    """[Conv2d, BatchNorm2d, ReLU]. Padding defaults to the explicit
+                 bias: bool = True, padding: int = None,
+                 conv=nn.Conv2d) -> List[nn.Module]:
+    """[conv, BatchNorm2d, ReLU]. Padding defaults to the explicit
     symmetric (k-1)//2, which is torch's own: a stride-2 3x3 window starts
     at -1, as the JAX package forces with explicit padding."""
     p = (kernel - 1) // 2 if padding is None else padding
-    return [nn.Conv2d(cin, cout, kernel, stride=stride, padding=p, bias=bias),
+    return [conv(cin, cout, kernel, stride=stride, padding=p, bias=bias),
             nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU()]
 

@@ -3,10 +3,14 @@
 The port's modules are named so that their `state_dict()` keys ARE the
 reference det3d keys: a reference pillar `.pth` loads with
 `model.load_state_dict(load_reference_state_dict(path))`, and weights made
-by the JAX package come across with `flax_to_state_dict`.
+by the JAX package come across with `flax_to_state_dict`. A reference
+VoxelNet `.pth` loads once its `backbone.extra_conv.*` keys are folded into
+the port's `z_crush.*` (`_compose_extra_conv`).
 
-`_key_map` is the port's own copy of the pillar-path part of
-`futuredet_tpu/utils/convert_checkpoint.py::_key_map` (reader, neck, head);
+`_key_map` is the port's own copy of
+`futuredet_tpu/utils/convert_checkpoint.py::_key_map` for the ported
+modules (pillar reader, sparse middle encoder, neck, head), plus the
+port-only `z_crush.{0,1}` keys of VoxelNet's z_crush ConvBNReLU;
 `flax_to_state_dict` inverts its layout converters:
 
   flax Dense kernel (in, out)              -> torch Linear (out, in)
@@ -14,12 +18,14 @@ by the JAX package come across with `flax_to_state_dict`.
   flax ConvTranspose kernel (kh, kw, in, out), taps flipped
                                            -> torch ConvTranspose2d
                                               (in, out, kh, kw)
+  SparseConv kernel (27, in, out), K = (kd*3+kh)*3+kw
+                                           -> spconv (kd, kh, kw, in, out)
   BN scale/bias (params), mean/var (batch_stats)
                                            -> weight/bias, running_mean/var
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,9 +64,11 @@ def _conv_bn_relu(ours: Tuple[str, ...], ref_conv: str, ref_bn: str,
 
 
 def _key_map(cfg: ExperimentConfig):
-    """(param_entries, stat_entries) of the pillar detector."""
-    if cfg.model.reader != "pillar_feature_net":
-        raise NotImplementedError("only the pillar path is ported")
+    """(param_entries, stat_entries) of the pillar or sparse VoxelNet
+    detector."""
+    m = cfg.model
+    if m.detector == "voxelnet" and m.middle != "sparse":
+        raise NotImplementedError("only the sparse VoxelNet middle is ported")
     params: List = []
     stats: List = []
 
@@ -68,13 +76,39 @@ def _key_map(cfg: ExperimentConfig):
         params.extend(p)
         stats.extend(s)
 
-    m = cfg.model
-    # reader (ref pillar_encoder.py:59-105)
-    for i in range(len(m.pillar_filters)):
-        params.append((("reader", f"Dense_{i}", "kernel"),
-                       f"reader.pfn_layers.{i}.linear.weight", "linear"))
-        add(*_bn(("reader", f"MaskedBatchNorm_{i}"),
-                 f"reader.pfn_layers.{i}.norm"))
+    # reader (ref pillar_encoder.py:59-105); mean_vfe has no parameters
+    if m.reader == "pillar_feature_net":
+        for i in range(len(m.pillar_filters)):
+            params.append((("reader", f"Dense_{i}", "kernel"),
+                           f"reader.pfn_layers.{i}.linear.weight", "linear"))
+            add(*_bn(("reader", f"MaskedBatchNorm_{i}"),
+                     f"reader.pfn_layers.{i}.norm"))
+
+    if m.detector == "voxelnet":
+        # ref SpMiddleResNetFHD (scn.py:98-146)
+        params.append((("middle", "conv_input", "kernel"),
+                       "backbone.conv_input.0.weight", "subm"))
+        add(*_bn(("middle", "bn_input"), "backbone.conv_input.1"))
+
+        def res_block(ours: str, ref: str):
+            for cn, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+                params.append((("middle", ours, cn, "kernel"),
+                               f"{ref}.{cn}.weight", "subm"))
+                params.append((("middle", ours, cn, "bias"),
+                               f"{ref}.{cn}.bias", "copy"))
+                add(*_bn(("middle", ours, bn), f"{ref}.{bn}"))
+
+        for j in range(2):
+            res_block(f"res0_{j}", f"backbone.conv1.{j}")
+        for s in range(1, 4):
+            params.append((("middle", f"down{s}", "kernel"),
+                           f"backbone.conv{s + 1}.0.weight", "subm"))
+            add(*_bn(("middle", f"bn_down{s}"), f"backbone.conv{s + 1}.1"))
+            for j in range(2):
+                res_block(f"res{s}_{j}", f"backbone.conv{s + 1}.{3 + j}")
+        # port-only keys: the reference extra_conv folds into z_crush
+        add(*_conv_bn_relu(("z_crush",), "z_crush.0", "z_crush.1",
+                           bias=False))
 
     # neck (ref rpn.py:120-190)
     up_start = len(m.rpn.layer_nums) - len(m.rpn.us_strides)
@@ -133,6 +167,8 @@ _TO_TORCH = {
     "conv": lambda w: np.transpose(w, (3, 2, 0, 1)),          # HWIO -> OIHW
     # undo the tap flip, then (kh, kw, in, out) -> (in, out, kh, kw)
     "deconv": lambda w: np.transpose(w[::-1, ::-1], (2, 3, 0, 1)),
+    # (27, in, out) -> spconv (kd, kh, kw, in, out)
+    "subm": lambda w: w.reshape(3, 3, 3, *w.shape[1:]),
     "copy": lambda w: w,
 }
 
@@ -146,10 +182,11 @@ def _leaf(tree, path):
 def flax_to_state_dict(variables, cfg: ExperimentConfig
                        ) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} numpy trees of the JAX
-    PointPillarsDetector -> a state dict that the port's detector takes with
-    `load_state_dict(strict=True)`. Top-level modules (`reader`, `neck`,
-    `head`) absent from the trees are left out, so the trees of one module
-    alone, e.g. {'params': {'neck': ...}, ...}, give that module's keys."""
+    PointPillarsDetector or VoxelNetDetector -> a state dict that the
+    port's detector takes with `load_state_dict(strict=True)`. Top-level
+    modules (`reader`, `middle`, `z_crush`, `neck`, `head`) absent from the
+    trees are left out, so the trees of one module alone, e.g.
+    {'params': {'neck': ...}, ...}, give that module's keys."""
     param_entries, stat_entries = _key_map(cfg)
     sd: Dict[str, torch.Tensor] = {}
     for tree_name, entries in (("params", param_entries),
@@ -164,3 +201,40 @@ def flax_to_state_dict(variables, cfg: ExperimentConfig
         sd[key.removesuffix("running_mean") + "num_batches_tracked"] = \
             torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def _compose_extra_conv(sd: Dict[str, torch.Tensor], z_in: int, z_out: int
+                        ) -> Optional[Dict[str, torch.Tensor]]:
+    """Fold the reference `backbone.extra_conv` ((3,1,1) stride-(2,1,1)
+    conv + BN + ReLU over z, scn.py:140-146) into the port's z_crush 1x1
+    ConvBNReLU of `z_in` = Z*C inputs and `z_out` outputs, as
+    `futuredet_tpu/utils/convert_checkpoint.py::_compose_extra_conv` folds
+    it into the flax z_crush. Returns the `z_crush.*` entries, or None when
+    `sd` has no extra_conv or the shapes do not line up (the fold is exact
+    only for a stage-3 depth D in {5, 6} and z_out = 2 * C).
+
+    The port's middle flattens the z-stack z-major (channel z*C + c); the
+    reference .dense() flattens C-major (c*D + d, scn.py:165-168), the
+    layout the RPN weights expect: output depth d reads z in {2d, 2d+1,
+    2d+2} and lands on column 2c + d."""
+    w = sd.get("backbone.extra_conv.0.weight")
+    if w is None:
+        return None
+    w = w.detach().cpu().to(torch.float32)
+    kd, _, _, ci, co = w.shape                      # (3, 1, 1, C, C)
+    D = z_in // ci
+    if z_in % ci or z_out != 2 * co or D not in (5, 6):
+        return None
+    new = torch.zeros(z_out, z_in, 1, 1)
+    for d_out in range(2):
+        for kdi in range(kd):
+            z = 2 * d_out + kdi
+            if z < D:
+                new[d_out::2, z * ci:(z + 1) * ci, 0, 0] += w[kdi, 0, 0].T
+    bn = "backbone.extra_conv.1"
+    out = {"z_crush.0.weight": new}
+    for name in ("weight", "bias", "running_mean", "running_var"):
+        out[f"z_crush.1.{name}"] = torch.repeat_interleave(
+            sd[f"{bn}.{name}"].detach().cpu().to(torch.float32), 2)
+    out["z_crush.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return out

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of futuredet_torch's main path goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile.py [--scene uniform|clustered] [--iters 5]
+    python3 scripts/torch_profile.py [--model pp_forecast_n3dtf|forecast_n3dtf]
+                                     [--scene uniform|clustered] [--iters 5]
                                      [--trace PATH]
 
-Builds full-width pp_forecast_n3dtf with seeded random weights (as
-chip_smoke.py does), runs the scene through reader -> neck -> head ->
-decode_and_nms, each stage under its own `record_function` range, and traces
-`--iters` runs with torch.profiler after 3 warm-up runs. Prints JSON lines:
-the device time of each stage, the 15 kernels with the most device time,
-the conv FLOPs of one run and the device's busy share of the traced wall
-time. TF32 is off, as in chip_smoke.py. `--trace` writes the Chrome trace.
+Builds the full-width model with seeded random weights and the scenes of
+chip_smoke.py, runs a scene through the model's stages (pillars: reader ->
+neck -> head -> decode_and_nms; voxelnet: voxelize -> middle -> z_crush ->
+neck -> head -> decode_and_nms), each under its own `record_function`
+range, and traces `--iters` runs with torch.profiler after 3 warm-up runs.
+Prints JSON lines: the device time of each stage, the wall time and peak
+device memory of each stage in one run synchronised after every stage,
+the 15 kernels with the most device time, the dense conv FLOPs of one run
+and the device's busy share of the traced wall time. TF32 is off, as in
+chip_smoke.py. `--trace` writes the Chrome trace.
 """
 from __future__ import annotations
 
@@ -28,10 +32,13 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (MAX_POINTS, NAME, scene_clustered,  # noqa: E402
+from chip_smoke import (MAX_POINTS, NAME, VOX_NAME,  # noqa: E402
+                        scene_blobs, scene_clustered, scene_lidar,
                         scene_uniform)
 
-STAGES = ("reader", "neck", "head", "decode_and_nms")
+STAGES = {NAME: ("reader", "neck", "head", "decode_and_nms"),
+          VOX_NAME: ("voxelize", "middle", "z_crush", "neck", "head",
+                     "decode_and_nms")}
 
 
 def conv_flops(model, pts, valid):
@@ -56,6 +63,7 @@ def conv_flops(model, pts, valid):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default=NAME, choices=tuple(STAGES))
     ap.add_argument("--scene", default="uniform",
                     choices=("uniform", "clustered"))
     ap.add_argument("--iters", type=int, default=5)
@@ -74,29 +82,55 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    cfg = get_config(NAME)
-    cfg = cfg.replace(voxel=dataclasses.replace(
-        cfg.voxel, max_points=MAX_POINTS, max_voxels_eval=30000))
+    stages = STAGES[args.model]
+    cfg = get_config(args.model)
+    seed = 0 if args.scene == "uniform" else 1
+    if args.model == NAME:
+        cfg = cfg.replace(voxel=dataclasses.replace(
+            cfg.voxel, max_points=MAX_POINTS, max_voxels_eval=30000))
+        make = scene_uniform if args.scene == "uniform" else scene_clustered
+    else:
+        make = scene_blobs if args.scene == "uniform" else scene_lidar
     model = build_detector(cfg, seed=0)
-    make = scene_uniform if args.scene == "uniform" else scene_clustered
-    p, v = make(cfg, np.random.default_rng(0 if args.scene == "uniform"
-                                            else 1))
+    p, v = make(cfg, np.random.default_rng(seed))
     pts, valid = torch.from_numpy(p).cuda(), torch.from_numpy(v).cuda()
+    peak_mib, wall = {}, {}
+
+    def stage(name, fn, *a):
+        t0 = time.perf_counter()
+        with record_function(name):
+            out = fn(*a)
+        if track:
+            torch.cuda.synchronize()
+            wall[name] = (time.perf_counter() - t0) * 1e3
+            peak_mib[name] = torch.cuda.max_memory_allocated() / 2**20
+            torch.cuda.reset_peak_memory_stats()
+        return out
 
     def run():
         with torch.no_grad():
-            with record_function("reader"):
-                canvas = model.reader(pts, valid)
-            with record_function("neck"):
-                x = model.neck(canvas.permute(0, 3, 1, 2))
-            with record_function("head"):
-                preds = model.bbox_head(x)
-            with record_function("decode_and_nms"):
-                return decode_and_nms(cfg, preds)
+            if args.model == NAME:
+                x = stage("reader", model.reader, pts, valid)
+                x = x.permute(0, 3, 1, 2)
+            else:
+                feats, vm = stage("voxelize", model.voxelize, pts, valid)
+                bev, zmask = stage("middle", model.backbone, feats,
+                                   vm.coords, vm.batch, 1)
+                x = stage("z_crush", model.crush, bev, zmask)
+            x = stage("neck", model.neck, x)
+            preds = stage("head", model.bbox_head, x)
+            return stage("decode_and_nms", decode_and_nms, cfg, preds)
 
+    # 3 warm-up runs, then one run with a synchronize after each stage
+    # for its wall time and peak memory
+    track = False
     for _ in range(3):
         run()
+    track = True
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    track = False
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -110,19 +144,22 @@ def main() -> int:
         return getattr(e, "device_time_total", None) or getattr(
             e, "cuda_time_total", 0.0)
 
-    stage = {e.key: dev_us(e) / 1e3 / args.iters for e in events
-             if e.key in STAGES}
+    stage_ms = {e.key: dev_us(e) / 1e3 / args.iters for e in events
+                if e.key in stages}
     kernels = sorted((e for e in events if dev_us(e) > 0
-                      and e.key not in STAGES
+                      and e.key not in stages
                       and str(getattr(e, "device_type", "")).endswith("CUDA")),
                      key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    print(json.dumps({"card": card, "scene": args.scene,
+    print(json.dumps({"card": card, "model": args.model,
+                      "scene": args.scene,
                       "iters": args.iters, "wall_ms_per_run":
                       wall_ms / args.iters,
                       "device_busy_ms_per_run": busy_ms / args.iters,
                       "device_busy_share": busy_ms / wall_ms,
-                      "stage_device_ms_per_run": stage,
+                      "stage_device_ms_per_run": stage_ms,
+                      "stage_wall_ms_synced": wall,
+                      "stage_peak_mib": peak_mib,
                       "conv_gflop_per_run": conv_flops(model, pts, valid)
                       / 1e9}), flush=True)
     for e in kernels[:15]:

@@ -94,8 +94,10 @@ def test_deconv_bridge_undoes_the_tap_flip():
 
 def test_entry_points_refuse_what_is_not_ported():
     cfg = get_config("pp_forecast_n3dtf")
+    vox = get_config("forecast_n3dtf")
     with pytest.raises(NotImplementedError):
-        build_detector(get_config("forecast_n3dtf"), device="cpu")
+        build_detector(vox.replace(model=dataclasses.replace(
+            vox.model, middle="dense")), device="cpu")
     with pytest.raises(NotImplementedError):
         build_detector(get_config("pp_forecast_n3dtf_two_stage"),
                        device="cpu")
@@ -124,3 +126,19 @@ def test_config_copy_is_identical():
         assert a == b, name
         assert (dataclasses.asdict(jc.tiny_variant(jc.get_config(name)))
                 == dataclasses.asdict(tc.tiny_variant(tc.get_config(name))))
+
+
+@pytest.mark.parametrize("cin,stride,bias", [(256, 1, False), (200, 2, True),
+                                             (64, 1, True)])
+def test_split_input_conv_is_a_conv(cin, stride, bias):
+    """The RPN stem's conv, run over 128-channel input groups, computes
+    Conv2d's function with Conv2d's parameters (fp32 sums regrouped:
+    atol 1e-5)."""
+    from futuredet_torch.models.layers import SplitInputConv2d
+    torch.manual_seed(0)
+    ref = torch.nn.Conv2d(cin, 32, 3, stride=stride, padding=0, bias=bias)
+    split = SplitInputConv2d(cin, 32, 3, stride=stride, padding=0, bias=bias)
+    split.load_state_dict(ref.state_dict())
+    x = torch.randn(2, cin, 15, 13)
+    with torch.no_grad():
+        torch.testing.assert_close(split(x), ref(x), rtol=0, atol=1e-5)
