@@ -9,7 +9,8 @@ CUDA toolkit. Phases, one JSON line each (several for some):
 
   1. device and build: card name and power limit, then the CUDA kernels of
      futuredet_torch/csrc (K1 nms_kernel.cu, K2 gather_conv_kernel.cu) built
-     at once into build/torch_kernels/, with ptxas's lines for each.
+     at once into build/torch_kernels/, with ptxas's lines for each; no K2
+     function may spill registers.
 
   The pillar path, pp_forecast_n3dtf:
   2. main path: full width (150k points, 512x512 canvas, RPN (64,128,256) x
@@ -22,7 +23,12 @@ CUDA toolkit. Phases, one JSON line each (several for some):
      and axis-aligned boxes with collinear edges. Survivor masks must be
      identical.
   4. the uniform scene through the same weights on the CPU (plain
-     versions): post-sigmoid heatmaps within 1e-3, detections matched.
+     versions): post-sigmoid heatmaps within 1e-3, detections matched
+     timestep by timestep (a reference box may be missing only where its
+     score lies within twice the measured heatmap difference, and within
+     1e-6, of the card's cut: the lowest kept score of a full timestep, or
+     the score threshold; such boxes are listed as let_off_at_the_cut, at
+     most 2 a scene).
   5. times: 3 warm-up runs, then the median of 20.
 
   The sparse VoxelNet path, forecast_n3dtf:
@@ -36,16 +42,22 @@ CUDA toolkit. Phases, one JSON line each (several for some):
      bind.
   7. K2 against its plain PyTorch version on the card: the 20 convs of the
      uniform scene as the main path gave them (max |diff| <= 1e-5 *
-     max(1, max|plain|), fp32 summation order), one conv launched again
-     (bit-identical), and adversarial tables: Cin = 5, N = 1 and N = 65, a
-     table of absent entries only (exactly the bias), a tile whose 64
-     sites have all 27 neighbours.
+     max(1, max|plain|): fp32 summation order, and 3xTF32 on the tensor
+     cores for the wide family), each launched again (bit-identical), and
+     adversarial tables: Cin = 5, N = 1, 65 and 129, Cout = 8 in both
+     families, a table of absent entries only (exactly the bias), tiles
+     whose sites have all 27 neighbours. Each line names the conv's family
+     (route: narrow or wide) and its bounds.
   8. the uniform scene through the same weights on the CPU: voxel coords
      and counts identical and features within 1e-6, per-stage site counts
-     identical, post-sigmoid heatmaps within 1e-3, detections matched.
+     identical, post-sigmoid heatmaps within 1e-3, detections matched as in
+     phase 4 (the untrained heads score every box within 7e-4 above the
+     0.1 threshold, so neighbouring ranks lie ~2e-7 apart).
   9. times: ms per scene (3 warm-ups, median of 20) and peak memory; K2
      per launch for four representative convs; K2, its plain version, the
-     stacked index_select + mm yardstick and the bound for all 20 convs.
+     stacked index_select + mm yardstick, the bound at the fp32 rate
+     (bound_ms) and, for the wide family, at the 3xTF32 tensor-core rate
+     (tc_bound_ms) for all 20 convs, each with its route.
 
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
@@ -54,6 +66,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -70,7 +83,14 @@ HM_ATOL = 1e-3            # card vs CPU, fp32 convs in another order
 CANVAS_ATOL = 1e-4        # card vs CPU reader output, sums in another order
 VOXEL_FEAT_ATOL = 1e-6    # card vs CPU voxel means, the same adds in order
 K2_RTOL = 1e-5            # K2 vs plain: of max(1, max|plain|), fp32 order
+# card vs CPU detections: a reference box within twice the measured heatmap
+# difference, and within NEAR_CAP, of the card's cut may be missing (a near
+# tie; measured differences are 3e-8 to 1.3e-7), at most MAX_LET_OFF a scene
+NEAR_CAP = 1e-6
+MAX_LET_OFF = 2
 FP32_PEAK = 67e12         # H100 SXM fp32 vector peak, FLOP/s
+# H100 SXM dense TF32 tensor-core peak over the three MMAs of 3xTF32
+TF32X3_PEAK = 495e12 / 3
 HBM_RATE = 3.35e12        # H100 SXM device memory, bytes/s
 # fp32 operations of one K1 pair test (csrc/nms_kernel.cu): 8 clipped edges
 # of ~50 operations each, the victim's 4 corners (32), the two sums, eps
@@ -200,39 +220,68 @@ def scene_lidar(cfg, rng, n_objects=40):
 
 def assert_detections_match(boxes, scores, labels, rboxes, rscores, rlabels,
                             score_floor=0.1, center_tol=0.1,
-                            score_tol=1e-2):
+                            score_tol=1e-2, cut=None, near=0.0):
     """Greedy same-label centre matching: every confident reference
     detection needs a counterpart within center_tol with score within
     score_tol and geometry within 0.05 (the matcher of the JAX package's
-    checkpoint-parity test)."""
+    checkpoint-parity test). A reference detection whose score lies within
+    `near` of `cut` (the card's lowest kept score of its timestep, or the
+    score threshold) may be missing: scores that differ by `near` can cross
+    the cut. Returns the reference detections let off so."""
     want = rscores >= score_floor
     rboxes, rscores, rlabels = rboxes[want], rscores[want], rlabels[want]
     used = np.zeros(len(boxes), bool)
+    let_off = []
     for rb, rs, rl in zip(rboxes, rscores, rlabels):
         d = np.linalg.norm(boxes[:, :2] - rb[:2], axis=1)
         d = np.where((labels == rl) & ~used, d, np.inf)
         j = int(np.argmin(d))
+        if d[j] > center_tol and cut is not None and rs <= cut + near:
+            let_off.append({"score": float(rs), "cut": float(cut),
+                            "label": int(rl), "closest_m": float(d[j])})
+            continue
         check(d[j] <= center_tol,
               f"reference detection at {rb[:3]} (label {rl}, score "
-              f"{rs:.3f}) has no match within {center_tol} m (closest "
-              f"{d[j]:.3f})")
+              f"{rs:.7f}) has no match within {center_tol} m (closest "
+              f"{d[j]:.3f}; the card's cut {cut}, near {near})")
         used[j] = True
         check(abs(scores[j] - rs) <= score_tol, (scores[j], rs))
         np.testing.assert_allclose(boxes[j][:6], rb[:6], atol=0.05)
         np.testing.assert_allclose(
             [np.sin(boxes[j][8]), np.cos(boxes[j][8])],
             [np.sin(rb[8]), np.cos(rb[8])], atol=0.05)
+    return let_off
 
 
-def check_detections_match(gpu_det, cpu_det):
-    gk = gpu_det.valid[0].cpu().numpy()
-    ck = cpu_det.valid[0].numpy()
-    assert_detections_match(
-        gpu_det.boxes[0].cpu().numpy()[gk],
-        gpu_det.scores[0].cpu().numpy()[gk],
-        gpu_det.labels[0].cpu().numpy()[gk], cpu_det.boxes[0].numpy()[ck],
-        cpu_det.scores[0].numpy()[ck], cpu_det.labels[0].numpy()[ck])
-    return int(gk.sum()), int(ck.sum())
+def check_detections_match(cfg, gpu_det, cpu_det, score_err):
+    """Card against CPU detections, timestep by timestep. The card's
+    scores differ from the CPU's by up to `score_err` (the measured
+    heatmap difference), so at a timestep that keeps post_max_size boxes a
+    reference box within near = min(2 * score_err, NEAR_CAP) of the card's
+    lowest kept score may have been displaced by a near tie, and one within
+    near of the score threshold may have crossed it; every other reference
+    box must be matched, and at most MAX_LET_OFF boxes of the scene may be
+    let off. Returns (card detections, CPU detections, those let off)."""
+    post = cfg.test.nms.post_max_size
+    T = gpu_det.valid.shape[1] // post
+    near = min(2 * score_err, NEAR_CAP)
+    let_off = []
+    for t in range(T):
+        sl = slice(t * post, (t + 1) * post)
+        gk = gpu_det.valid[0, sl].cpu().numpy()
+        ck = cpu_det.valid[0, sl].numpy()
+        gs = gpu_det.scores[0, sl].cpu().numpy()[gk]
+        cut = float(gs.min()) if gk.sum() == post else \
+            cfg.test.score_threshold
+        let_off += assert_detections_match(
+            gpu_det.boxes[0, sl].cpu().numpy()[gk], gs,
+            gpu_det.labels[0, sl].cpu().numpy()[gk],
+            cpu_det.boxes[0, sl].numpy()[ck], cpu_det.scores[0, sl].numpy()[ck],
+            cpu_det.labels[0, sl].numpy()[ck], cut=cut, near=near)
+    check(len(let_off) <= MAX_LET_OFF,
+          f"{len(let_off)} reference boxes let off at the cut (at most "
+          f"{MAX_LET_OFF}): {let_off}")
+    return (int(gpu_det.valid.sum()), int(cpu_det.valid.sum()), let_off)
 
 
 def time_host(fn):
@@ -292,17 +341,27 @@ def k1_needed_pairs(kills, alive, valid):
 
 
 def k2_bound(features, table, weights, bias):
-    """(bytes ms, operations ms, present pairs) of one gather-conv: every
-    input read once and the output written once at the memory rate, and
-    2 * present (k, n) pairs * Cin * Cout fp32 operations at the fp32
-    peak."""
+    """The least time of one gather-conv on these inputs: the larger of
+    its bytes (every input read once and the output written once) at the
+    memory rate and its 2 * present (k, n) pairs * Cin * Cout operations,
+    at the fp32 peak (bound_ms) and, for the wide family, which
+    does them as 3xTF32 on the tensor cores, at a third of the dense TF32
+    peak (tc_bound_ms; None for the narrow family)."""
+    from futuredet_torch.ops.pallas_gather import k2_route
     V, cin = features.shape
     N, cout = table.shape[1], weights.shape[2]
     present = int(((table >= 0) & (table < V)).sum())
     nbytes = 4 * (features.numel() + table.numel() + weights.numel()
                   + (0 if bias is None else cout) + N * cout)
-    return (nbytes / HBM_RATE * 1e3,
-            2 * present * cin * cout / FP32_PEAK * 1e3, present)
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    ops = 2 * present * cin * cout
+    ops_ms = ops / FP32_PEAK * 1e3
+    route = k2_route(cin, cout)
+    return {"route": route, "present_pairs": present,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "tc_bound_ms": (max(bytes_ms, ops / TF32X3_PEAK * 1e3)
+                            if route == "wide" else None)}
 
 
 def k2_library_call(features, table, weights, bias):
@@ -458,13 +517,14 @@ def pillar_path(dev, card):
                         - torch.sigmoid(c["hm"])).abs().max())
                  for g, c in zip(gpu_preds, cpu_preds))
     check(hm_err <= HM_ATOL, f"heatmap card vs CPU {hm_err}")
-    n_card, n_cpu = check_detections_match(gpu_det, cpu_det)
+    n_card, n_cpu, let_off = check_detections_match(cfg, gpu_det, cpu_det,
+                                                    hm_err)
     emit({"phase": "cpu_cross_check", "model": NAME, "scene": "uniform",
           "layer_nums": list(cfg.model.rpn.layer_nums),
           "cpu_s": round(cpu_s, 3), "canvas_max_abs_err": canvas_err,
           "canvas_atol": CANVAS_ATOL, "hm_max_abs_err": hm_err,
           "hm_atol": HM_ATOL, "detections_card": n_card,
-          "detections_cpu": n_cpu})
+          "detections_cpu": n_cpu, "let_off_at_the_cut": let_off})
 
     # 5. times --------------------------------------------------------------
     times = {}
@@ -508,6 +568,7 @@ def k2_compare(features, table, weights, bias):
     tol = K2_RTOL * max(1.0, float(want.abs().max()) if want.numel() else 0.0)
     line = {"V": features.shape[0], "N": table.shape[1],
             "cin": features.shape[1], "cout": weights.shape[2],
+            **k2_bound(features, table, weights, bias),
             "max_abs_err": err, "tol": tol}
     if err > tol:
         rows = diff.amax(1).topk(min(5, diff.shape[0])).indices
@@ -594,23 +655,19 @@ def voxelnet_path(dev, card):
     check(len(recorded) == 20, f"{len(recorded)} K2 launches recorded")
 
     # 7. K2 against its plain version on the card -------------------------
-    convs, ok_all, k2_err = [], True, 0.0
+    convs, ok_all, same_all, k2_err = [], True, True, 0.0
     for i, args in enumerate(recorded):
         line, ok, err = k2_compare(*args)
         line["conv"] = i
+        line["bit_identical"] = bool(torch.equal(k2(*args), k2(*args)))
         convs.append(line)
         ok_all &= ok
+        same_all &= line["bit_identical"]
         k2_err = max(k2_err, err)
     emit({"phase": "k2_vs_plain", "case": "main_path_20_convs",
           "rtol_of_max_plain": K2_RTOL, "convs": convs})
     check(ok_all, "K2 differs from its plain version on the main path")
-    f, t, w, b = recorded[1]
-    first = k2(f, t, w, b)
-    again = k2(f, t, w, b)
-    same = bool(torch.equal(first, again))
-    emit({"phase": "k2_vs_plain", "case": "relaunch_s0_subm",
-          "bit_identical": same})
-    check(same, "K2 is not bit-identical from launch to launch")
+    check(same_all, "K2 is not bit-identical from launch to launch")
     rng = np.random.default_rng(2)
 
     def case(V, N, cin, cout, absent):
@@ -628,15 +685,24 @@ def voxelnet_path(dev, card):
     adversarial = {"cin5": case(4000, 4000, 5, 16, 0.5),
                    "n1": case(3000, 1, 64, 128, 0.3),
                    "n65": case(3000, 65, 32, 64, 0.3),
+                   "n129_wide": case(3000, 129, 32, 32, 0.3),
+                   "n129_narrow": case(3000, 129, 16, 16, 0.3),
+                   "cout8_wide": case(700, 700, 32, 8, 0.6),
+                   "cout8_narrow": case(700, 700, 16, 8, 0.6),
                    "all_absent": case(2000, 300, 16, 32, 1.0),
-                   "all_27_present_tile": case(5000, 64, 128, 128, 0.0)}
+                   "all_absent_wide": case(2000, 300, 64, 128, 1.0),
+                   "all_27_present_tile": case(5000, 128, 128, 128, 0.0),
+                   "all_27_present_narrow": case(5000, 256, 16, 32, 0.0)}
     for cname, args in adversarial.items():
         line, ok, err = k2_compare(*args)
-        if cname == "all_absent":
+        line["bit_identical"] = bool(torch.equal(k2(*args), k2(*args)))
+        ok &= line["bit_identical"]
+        if cname.startswith("all_absent"):
             got = k2(*args)
-            ok &= bool(torch.equal(got, args[3].expand_as(got)))
-            line["exactly_bias"] = ok
-        if cname == "all_27_present_tile":
+            line["exactly_bias"] = bool(torch.equal(
+                got, args[3].expand_as(got)))
+            ok &= line["exactly_bias"]
+        if cname.startswith("all_27_present"):
             ok &= bool((args[1] < args[0].shape[0]).all())
         emit({"phase": "k2_vs_plain", "case": cname, **line})
         check(ok, f"K2 differs from its plain version on {cname}")
@@ -669,14 +735,15 @@ def voxelnet_path(dev, card):
                         - torch.sigmoid(c["hm"])).abs().max())
                  for g, c in zip(gpu_preds, cpu_preds))
     check(hm_err <= HM_ATOL, f"heatmap card vs CPU {hm_err}")
-    n_card, n_cpu = check_detections_match(gpu_det, cpu_det)
+    n_card, n_cpu, let_off = check_detections_match(cfg, gpu_det, cpu_det,
+                                                    hm_err)
     emit({"phase": "cpu_cross_check", "model": VOX_NAME,
           "scene": "uniform_blobs", "cpu_s": round(cpu_s, 3),
           "voxels": cpu_sites[0], "sites_per_stage": cpu_sites[1],
           "voxel_feat_max_abs_err": feat_err,
           "voxel_feat_atol": VOXEL_FEAT_ATOL, "hm_max_abs_err": hm_err,
           "hm_atol": HM_ATOL, "detections_card": n_card,
-          "detections_cpu": n_cpu})
+          "detections_cpu": n_cpu, "let_off_at_the_cut": let_off})
 
     # 9. times --------------------------------------------------------------
     times, peak = {}, {}
@@ -686,7 +753,6 @@ def voxelnet_path(dev, card):
         peak[name] = torch.cuda.max_memory_allocated() / 2**20
     per_conv = []
     for i, args in enumerate(recorded):
-        bytes_ms, ops_ms, present = k2_bound(*args)
         lib = k2_library_call(*args)
         check(float((lib() - pallas_gather.gather_conv_plain(*args)).abs()
                     .max()) <= K2_RTOL * max(1.0, float(lib().abs().max())),
@@ -694,15 +760,16 @@ def voxelnet_path(dev, card):
         per_conv.append({
             "conv": i, "V": args[0].shape[0], "N": args[1].shape[1],
             "cin": args[0].shape[1], "cout": args[2].shape[2],
-            "present_pairs": present,
+            **k2_bound(*args),
             "ms": time_device(lambda a=args: k2(*a)),
             "plain_ms": time_device(
                 lambda a=args: pallas_gather.gather_conv_plain(*a)),
-            "library_ms": time_device(lib),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+            "library_ms": time_device(lib)})
     total = {k: sum(c[k] for c in per_conv)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    # the bound of the arithmetic K2 does: 3xTF32 for the wide convs
+    total["tc_bound_ms"] = sum(c["tc_bound_ms"] or c["bound_ms"]
+                               for c in per_conv)
     ops_share = sum(c["bound_ms"] for c in per_conv
                     if c["bound_by"] == "operations") / total["bound_ms"]
     emit({"phase": "times", "model": VOX_NAME, "card": card,
@@ -740,10 +807,14 @@ def main() -> int:
     secs = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "Compiling" in ln]
+                    if "registers" in ln or "Compiling" in ln
+                    or "spill" in ln]
              for name in secs}
     check(set(secs) >= {"nms_kernel.cu", "gather_conv_kernel.cu"},
           f"built {sorted(secs)}")
+    spills = [ln for ln in ptxas["gather_conv_kernel.cu"]
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    check(not spills, f"K2 spills registers: {spills}")
     emit({"phase": "device_build", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -776,6 +847,7 @@ def main() -> int:
         "matched": True, "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "tc_bound_ms": k2["tc_bound_ms"],
         "library_ms": k2["library_ms"],
         "times_are": "sums over the 20 convs of one scene"}]})
     emit({"ok": True, "device": {"platform": "gpu",

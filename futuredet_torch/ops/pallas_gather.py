@@ -15,6 +15,13 @@ strided ones (N = output sites) alike.
 `gather_conv_plain`, the plain PyTorch version, for CPU tensors. The plain
 version is the JAX package's `loop` form (`sparse_conv.py:636-640`): a zero
 row appended, then per k one row gather and one matmul, summed.
+
+The kernel has two families, picked by `k2_route(cin, cout)`: `narrow`
+(Cin <= 16, Cout <= 32: convs whose bound is bytes; fp32 FMAs, W in shared
+memory, one or two sites per thread) and `wide` (Cin a multiple of 4
+otherwise: an implicit GEMM on the tensor cores in 3xTF32, which keeps
+fp32 accuracy). The C side picks by the same rule and refuses, through
+its return code, a shape that neither family takes.
 """
 from __future__ import annotations
 
@@ -28,6 +35,21 @@ _SRC = "gather_conv_kernel.cu"
 K_TAPS = 27
 # output widths the kernel is instantiated for (csrc/gather_conv_kernel.cu)
 COUTS = (8, 16, 32, 64, 128)
+
+
+def k2_route(cin: int, cout: int) -> str:
+    """The kernel family that takes a (Cin, Cout) conv: "narrow" (Cin <= 16
+    and Cout <= 32: fp32 FMAs) or "wide" (Cin a multiple of 4 otherwise:
+    3xTF32 tensor-core implicit GEMM), by the rule of `route_of` in
+    csrc/gather_conv_kernel.cu. Raises ValueError for a shape neither
+    takes."""
+    if cout in COUTS:
+        if 1 <= cin <= 16 and cout <= 32:
+            return "narrow"
+        if cin >= 4 and cin % 4 == 0:
+            return "wide"
+    raise ValueError(f"K2 takes Cout in {COUTS} with Cin <= 16 (Cout <= 32) "
+                     f"or Cin a multiple of 4; got Cin={cin}, Cout={cout}")
 
 
 def gather_conv_plain(features: torch.Tensor, table: torch.Tensor,
@@ -82,13 +104,14 @@ def gather_conv(features: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"unsupported device {features.device}")
     V, cin = features.shape
     N, cout = table.shape[1], weights.shape[2]
-    if cout not in COUTS:
-        raise ValueError(f"Cout={cout}: the kernel is built for Cout in "
-                         f"{COUTS}")
+    k2_route(cin, cout)   # raises for a shape neither family takes
     if not all(t.is_contiguous() for t in (features, table, weights, bias)
                if t is not None):
         raise ValueError("features, table, weights and bias must be "
                          "contiguous")
+    if features.data_ptr() % 16 or weights.data_ptr() % 16:
+        raise ValueError("features and weights must start 16-byte aligned "
+                         "(the kernel reads them in 16-byte vectors)")
     out = torch.empty((N, cout), dtype=torch.float32, device=features.device)
     if N == 0:
         return out

@@ -10,8 +10,8 @@ chip_smoke.py, runs a scene through the model's stages (pillars: reader ->
 neck -> head -> decode_and_nms; voxelnet: voxelize -> middle -> z_crush ->
 neck -> head -> decode_and_nms), each under its own `record_function`
 range, and traces `--iters` runs with torch.profiler after 3 warm-up runs.
-Prints JSON lines: the device time of each stage, the wall time and peak
-device memory of each stage in one run synchronised after every stage,
+Prints JSON lines: the device time of each stage, the wall time (median of
+5 runs synchronised after every stage) and peak device memory of each stage,
 the 15 kernels with the most device time, the dense conv FLOPs of one run
 and the device's busy share of the traced wall time. TF32 is off, as in
 chip_smoke.py. `--trace` writes the Chrome trace.
@@ -22,6 +22,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -94,7 +95,7 @@ def main() -> int:
     model = build_detector(cfg, seed=0)
     p, v = make(cfg, np.random.default_rng(seed))
     pts, valid = torch.from_numpy(p).cuda(), torch.from_numpy(v).cuda()
-    peak_mib, wall = {}, {}
+    peak_mib, walls = {}, {}
 
     def stage(name, fn, *a):
         t0 = time.perf_counter()
@@ -102,8 +103,10 @@ def main() -> int:
             out = fn(*a)
         if track:
             torch.cuda.synchronize()
-            wall[name] = (time.perf_counter() - t0) * 1e3
-            peak_mib[name] = torch.cuda.max_memory_allocated() / 2**20
+            walls.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            peak_mib[name] = max(peak_mib.get(name, 0.0),
+                                 torch.cuda.max_memory_allocated() / 2**20)
             torch.cuda.reset_peak_memory_stats()
         return out
 
@@ -121,16 +124,18 @@ def main() -> int:
             preds = stage("head", model.bbox_head, x)
             return stage("decode_and_nms", decode_and_nms, cfg, preds)
 
-    # 3 warm-up runs, then one run with a synchronize after each stage
-    # for its wall time and peak memory
+    # 3 warm-up runs, then 5 runs with a synchronize after each stage for
+    # its wall time (median) and peak memory
     track = False
     for _ in range(3):
         run()
     track = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    run()
+    for _ in range(5):
+        run()
     track = False
+    wall = {k: statistics.median(v) for k, v in walls.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -60,20 +60,42 @@ def k2_case(rng, V, N, cin, cout, absent=0.6):
             torch.from_numpy(w).cuda(), torch.from_numpy(b).cuda())
 
 
+# (V, N, Cin, Cout, share of absent entries): every (Cin, Cout) of the
+# voxelnet main path, N off the 64- and 128-site tiles, Cout = 8 in both
+# families, and tiles in which every site has all 27 neighbours
+K2_CASES = [
+    (5000, 5000, 5, 16, 0.6),        # conv_input, narrow
+    (4000, 4000, 16, 16, 0.6),       # stage-0 subm, narrow
+    (3000, 1111, 16, 32, 0.8),       # down1 (strided, N < V), narrow
+    (3000, 3000, 32, 32, 0.6),       # stage-1 subm, wide
+    (3000, 1500, 32, 64, 0.8),       # down2, wide
+    (2000, 2000, 64, 64, 0.6),       # stage-2 subm, wide
+    (2000, 1200, 64, 128, 0.8),      # down3, wide
+    (1000, 1000, 128, 128, 0.55),    # stage-3 subm, wide
+    (1000, 1, 128, 128, 0.3),        # N = 1
+    (2000, 65, 64, 64, 0.6),         # N = 65
+    (3000, 129, 32, 32, 0.6),        # N = 129, wide
+    (3000, 129, 16, 16, 0.6),        # N = 129, narrow
+    (700, 700, 32, 8, 0.6),          # Cout = 8, wide
+    (700, 700, 16, 8, 0.6),          # Cout = 8, narrow
+    (5000, 128, 128, 128, 0.0),      # all 27 taps present, wide
+    (5000, 256, 16, 32, 0.0),        # all 27 taps present, narrow
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,N,cin,cout", [
-    (5000, 5000, 5, 16), (4000, 4000, 16, 16), (3000, 1111, 16, 32),
-    (2000, 65, 64, 64), (1000, 1, 128, 128), (700, 700, 32, 8)])
-def test_k2_matches_plain_version_on_the_card(V, N, cin, cout):
+@pytest.mark.parametrize("V,N,cin,cout,absent", K2_CASES)
+def test_k2_matches_plain_version_on_the_card(V, N, cin, cout, absent):
     """The gather-conv kernel against its plain version, within fp32
-    summation order (1e-5 of the largest output), and bit-identical when
-    launched again."""
+    summation order (1e-5 of max(1, max|plain|)), bit-identical when
+    launched again, and exactly the bias for a table with no neighbour."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from futuredet_torch.ops.pallas_gather import (gather_conv,
                                                    gather_conv_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, tab, w, b = k2_case(np.random.default_rng(V + N), V, N, cin, cout)
+    x, tab, w, b = k2_case(np.random.default_rng(V + N + cin), V, N, cin,
+                           cout, absent)
     before = gather_conv.launches
     got = gather_conv(x, tab, w, b)
     again = gather_conv(x, tab, w, b)
@@ -86,6 +108,30 @@ def test_k2_matches_plain_version_on_the_card(V, N, cin, cout):
     # a table with no neighbour at all gives exactly the bias
     empty = torch.full_like(tab, V)
     assert torch.equal(gather_conv(x, empty, w, b), b.expand(N, cout))
+    assert torch.equal(gather_conv(x, empty, w),
+                       torch.zeros(N, cout, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(32, 32), (128, 128)])
+@pytest.mark.parametrize("side", ["64_sites", "128_sites"])
+def test_k2_wide_family_on_both_sides_of_its_tile_switch(cin, cout, side):
+    """The wide family takes 128-site tiles from N = 2 * 128 * SMs on (two
+    tiles per SM), 64-site ones below: one N on each side of that switch,
+    the upper one off the tile, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from futuredet_torch.ops.pallas_gather import (gather_conv,
+                                                   gather_conv_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    switch = 2 * 128 * torch.cuda.get_device_properties(0).multi_processor_count
+    N = switch - 1 if side == "64_sites" else switch + 65
+    x, tab, w, b = k2_case(np.random.default_rng(N + cin), 4000, N, cin, cout)
+    got = gather_conv(x, tab, w, b)
+    want = gather_conv_plain(x, tab, w, b)
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, gather_conv(x, tab, w, b))
 
 
 @pytest.mark.cuda
