@@ -9,8 +9,8 @@ CUDA toolkit. Phases, one JSON line each (several for some):
 
   1. device and build: card name and power limit, then the CUDA kernels of
      futuredet_torch/csrc (K1 nms_kernel.cu, K2 gather_conv_kernel.cu) built
-     at once into build/torch_kernels/, with ptxas's lines for each; no K2
-     function may spill registers.
+     at once into build/torch_kernels/, with ptxas's lines for each; no K1
+     or K2 function may spill registers.
 
   The pillar path, pp_forecast_n3dtf:
   2. main path: full width (150k points, 512x512 canvas, RPN (64,128,256) x
@@ -19,9 +19,11 @@ CUDA toolkit. Phases, one JSON line each (several for some):
      decode_and_nms. Launch counts are zeroed just before and read just
      after: each scene must launch K1 exactly once and K2 never.
   3. K1 against its plain PyTorch version on the card: the 7 x 1000 NMS
-     problems of the uniform scene's decode, a 1000-deep suppression chain
-     and axis-aligned boxes with collinear edges. Survivor masks must be
-     identical.
+     problems of the uniform scene's decode, a 1000-deep suppression chain,
+     axis-aligned boxes with collinear edges, a dense cluster where the
+     cull skips no pair, a 15 m cluster, and pairs at the cull's edge.
+     Survivor masks must be identical, and so must every kill bit of a
+     pair j > i (a pair the cull skips has plain IoU exactly 0).
   4. the uniform scene through the same weights on the CPU (plain
      versions): post-sigmoid heatmaps within 1e-3, detections matched
      timestep by timestep (a reference box may be missing only where its
@@ -29,7 +31,10 @@ CUDA toolkit. Phases, one JSON line each (several for some):
      1e-6, of the card's cut: the lowest kept score of a full timestep, or
      the score threshold; such boxes are listed as let_off_at_the_cut, at
      most 2 a scene).
-  5. times: 3 warm-up runs, then the median of 20.
+  5. times: 3 warm-up runs, then the median of 20; K1 on the main path's
+     7 x 1000 and on the dense cluster, each beside its plain version and
+     its bound for the pair tests that data needs (k1_bound: the pairs the
+     kernel's cull skips cost the cull test, the rest the full test).
 
   The sparse VoxelNet path, forecast_n3dtf:
   6. main path: full width (300k points into a 1440x1440x41 grid at
@@ -96,6 +101,9 @@ HBM_RATE = 3.35e12        # H100 SXM device memory, bytes/s
 # of ~50 operations each, the victim's 4 corners (32), the two sums, eps
 # shifts and the IoU ratio (~20); the sin/cos of each box are not counted
 K1_OPS_PER_PAIR = 450
+# fp32 operations of the cull test that skips a far pair: two centre
+# differences, their squares and sum, the reach sum, its square, the compare
+K1_OPS_PER_CULL = 8
 # the four K2 launches timed alone: index of the conv in the encoder's
 # order (stage 0: conv_input, 4 block convs; stages 1-3: down, 4 block
 # convs each)
@@ -223,11 +231,12 @@ def assert_detections_match(boxes, scores, labels, rboxes, rscores, rlabels,
                             score_tol=1e-2, cut=None, near=0.0):
     """Greedy same-label centre matching: every confident reference
     detection needs a counterpart within center_tol with score within
-    score_tol and geometry within 0.05 (the matcher of the JAX package's
-    checkpoint-parity test). A reference detection whose score lies within
-    `near` of `cut` (the card's lowest kept score of its timestep, or the
-    score threshold) may be missing: scores that differ by `near` can cross
-    the cut. Returns the reference detections let off so."""
+    score_tol and geometry within 0.05 (a copy of the matcher of the JAX
+    package's checkpoint-parity test). A reference detection whose score
+    lies within `near` of `cut` (the card's lowest kept score of its
+    timestep, or the score threshold) may be missing: scores that differ
+    by `near` can cross the cut. Returns the reference detections let off
+    so."""
     want = rscores >= score_floor
     rboxes, rscores, rlabels = rboxes[want], rscores[want], rlabels[want]
     used = np.zeros(len(boxes), bool)
@@ -324,20 +333,80 @@ def kill_bits(mask, n):
     return bits.reshape(*mask.shape[:2], -1)[..., :n].bool()
 
 
-def k1_needed_pairs(kills, alive, valid):
-    """Pair tests greedy NMS needs on this data: each surviving box i
-    against every later valid box j that no survivor before i removed."""
-    G, N, _ = kills.shape
-    idx = torch.arange(N, device=kills.device)
+def k1_pairs(boxes, valid, thr):
+    """The pair tests greedy NMS needs on this data, each surviving box i
+    against every later valid box j that no survivor before i removed,
+    split by the kernel's cull: `culled` pairs cost the cull test, `full`
+    ones the whole IoU. `all` counts every pair j > i."""
+    from futuredet_torch.ops.pallas_nms import cull_skips, nms_alive_plain
+    from futuredet_torch.ops.rotated_iou import pairwise_iou_bev
+    G, N, _ = boxes.shape
+    kills = pairwise_iou_bev(boxes, boxes).transpose(-1, -2) > thr
+    alive = nms_alive_plain(boxes, valid, thr)
+    idx = torch.arange(N, device=boxes.device)
     later = idx[None, :] > idx[:, None]
-    k = kills & later & alive[:, :, None]
     # first survivor that removes j (N if none)
-    first = torch.where(k, idx[None, :, None], N).amin(1)
-    # survivors i < j with i <= first[j] test j
-    upto = torch.minimum(idx[None, :] - 1, first).clamp_min(-1)
-    cum = torch.cumsum(alive.long(), -1)
-    tested = torch.where(upto >= 0, cum.gather(1, upto.clamp_min(0)), 0)
-    return int((tested * valid.long()).sum())
+    first = torch.where(kills & later & alive[:, :, None],
+                        idx[None, :, None], N).amin(1)
+    needed = (later & alive[:, :, None] & valid[:, None, :]
+              & (idx[None, :, None] <= first[:, None, :]))
+    n_needed = int(needed.sum())
+    culled = int((needed & cull_skips(boxes, thr)).sum())
+    return {"needed": n_needed, "culled": culled, "full": n_needed - culled,
+            "all": G * N * (N - 1) // 2}
+
+
+def k1_bound(boxes, valid, thr):
+    """The least time of one K1 call on these inputs: the larger of its
+    bytes (boxes and valid read once, alive written once) at the memory rate
+    and its operations (K1_OPS_PER_PAIR for each needed pair the cull keeps,
+    K1_OPS_PER_CULL for each it skips) at the fp32 peak."""
+    pairs = k1_pairs(boxes, valid, thr)
+    nbytes = boxes.numel() * 4 + 2 * valid.numel()
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    ops = pairs["full"] * K1_OPS_PER_PAIR + pairs["culled"] * K1_OPS_PER_CULL
+    ops_ms = ops / FP32_PEAK * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bytes": nbytes, "pairs_needed": pairs["needed"],
+            "pairs_full": pairs["full"], "pairs_culled": pairs["culled"],
+            "pairs_all": pairs["all"]}
+
+
+def k1_dense_cluster(G, n, rng):
+    """(G, n, 5) boxes of 1.5-5 m with centres in a 1.4 m square: every
+    pair overlaps its circles, so the cull skips none."""
+    return np.concatenate([
+        rng.uniform(-0.7, 0.7, (G, n, 2)), rng.uniform(1.5, 5.0, (G, n, 2)),
+        rng.uniform(-np.pi, np.pi, (G, n, 1))], -1).astype(np.float32)
+
+
+def k1_margin_pairs(n, rng, ulps=(-2, -1, 0, 1, 2)):
+    """(n, 5): n // 2 killer-victim pairs whose corners point at each other
+    along the line of centres, the victim at the cull's edge (the sum of
+    the two reaches) moved by a few fp32 ulps of that distance either way;
+    pairs lie 30 m apart over the main path's range."""
+    from futuredet_torch.ops.pallas_nms import cull_reach
+    m = n // 2
+    size = rng.uniform(0.5, 6.0, (m, 2, 2))
+    head = rng.uniform(-np.pi, np.pi, m)
+    b = np.zeros((n, 5), np.float32)
+    b[:] = [60.0, 60.0, 1.0, 1.0, 0.0]     # an odd box out, far away
+    k, v = slice(0, 2 * m, 2), slice(1, 2 * m, 2)
+    side = int(np.ceil(np.sqrt(m)))
+    b[k, 0] = (np.arange(m) % side) * 30.0 - 58.0
+    b[k, 1] = (np.arange(m) // side) * 30.0 - 58.0
+    b[k, 2:4] = size[:, 0]
+    b[v, 2:4] = size[:, 1]
+    b[k, 4] = head - np.arctan2(size[:, 0, 1], size[:, 0, 0])
+    b[v, 4] = head + np.pi - np.arctan2(size[:, 1, 1], size[:, 1, 0])
+    scale = 1 + np.resize(np.asarray(ulps), m) * np.float32(2.0 ** -23)
+    for _ in range(3):      # the reach grows with |x| + |y|: settle
+        reach = cull_reach(torch.from_numpy(b)).numpy()
+        d = (reach[k] + reach[v]) * scale
+        b[v, 0] = b[k, 0] + d * np.cos(head)
+        b[v, 1] = b[k, 1] + d * np.sin(head)
+    return b
 
 
 def k2_bound(features, table, weights, bias):
@@ -461,7 +530,17 @@ def pillar_path(dev, card):
     grid[0, :, 0] = (gi % 20).float() * 2.0
     grid[0, :, 1] = (gi // 20).float() * 1.0      # rows half-overlapping
     grid[0, :, 2:4] = 2.0
+    rng = np.random.default_rng(4)
+    ones = torch.ones(T, n, dtype=torch.bool, device=dev)
+    dense = torch.from_numpy(k1_dense_cluster(T, n, rng)).to(dev)
+    cluster = torch.from_numpy(k1_dense_cluster(T, n, rng)).to(dev)
+    cluster[..., :2] *= 7.5 / 0.7                  # centres in a 15 m square
+    margin = torch.from_numpy(np.stack([k1_margin_pairs(n, rng)
+                                        for _ in range(2)])).to(dev)
     cases = {"main_path_7x1000": (b_main, v_main, thr),
+             "dense_cluster_7x1000": (dense, ones, thr),
+             "cluster_15m_7x1000": (cluster, ones, thr),
+             "cull_margin_2x1000": (margin, ones[:2], thr),
              "chain_1000": (chain, torch.ones(1, n, dtype=torch.bool,
                                               device=dev), 0.1),
              "collinear_grid_400": (grid, torch.ones(1, 400,
@@ -479,9 +558,13 @@ def pillar_path(dev, card):
         kp = (iou > th) & later
         pair_diff = int((kb != kp).sum())
         same = bool(torch.equal(got, want))
+        culled = pallas_nms.cull_skips(b, th) & later
         line = {"phase": "k1_vs_plain", "case": cname,
                 "shape": list(b.shape), "survivors": int(got.sum()),
-                "identical": same, "pair_bits_differing": pair_diff}
+                "identical": same, "pair_bits_differing": pair_diff,
+                "pairs_culled": int(culled.sum()),
+                "pairs_all": int(later.sum()) * b.shape[0],
+                "culled_with_iou_not_0": int((culled & (iou != 0)).sum())}
         if pair_diff or not same:
             g, i, j = torch.nonzero(kb != kp)[:10].T.tolist() or ([], [], [])
             cpu_iou = pairwise_iou_bev(b.cpu(), b.cpu())
@@ -492,10 +575,13 @@ def pillar_path(dev, card):
                  "plain_iou_cpu": float(cpu_iou[gg, jj, ii])}
                 for gg, ii, jj in zip(g, i, j)]
         emit(line)
-        check(same, f"K1 differs from its plain version on {cname}")
+        check(same and pair_diff == 0 and not line["culled_with_iou_not_0"],
+              f"K1 differs from its plain version on {cname}")
         k1_err = max(k1_err, float((got != want).sum()))
     chain_alive = pallas_nms.rotate_nms_alive(*cases["chain_1000"][:2], 0.1)
     check(int(chain_alive.sum()) == n // 2, "chain survivors")
+    check(not bool(pallas_nms.cull_skips(dense, thr).any()),
+          "the dense cluster has a culled pair")
 
     # 4. the same weights on the CPU --------------------------------------
     t0 = time.perf_counter()
@@ -532,29 +618,31 @@ def pillar_path(dev, card):
         torch.cuda.reset_peak_memory_stats()
         times[name] = time_host(lambda p=p, v=v: run(p, v))
         times[name + "_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
-    k1_ms = time_device(lambda: pallas_nms.rotate_nms_alive(
-        b_main, v_main, thr))
-    plain_ms = time_device(lambda: pallas_nms.nms_alive_plain(
-        b_main, v_main, thr))
-    # bound: bytes in and out once, or the pair tests this data needs
-    alive = pallas_nms.nms_alive_plain(b_main, v_main, thr)
-    iou = pairwise_iou_bev(b_main, b_main).transpose(-1, -2)
-    pairs = k1_needed_pairs(iou > thr, alive, v_main)
-    nbytes = b_main.numel() * 4 + v_main.numel() + alive.numel()
-    bytes_ms = nbytes / HBM_RATE * 1e3
-    ops_ms = pairs * K1_OPS_PER_PAIR / FP32_PEAK * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    k1 = {}
+    for cname in ("main_path_7x1000", "dense_cluster_7x1000"):
+        b, v, th = cases[cname]
+        k1[cname] = {
+            "ms": time_device(lambda b=b, v=v, th=th:
+                              pallas_nms.rotate_nms_alive(b, v, th)),
+            "plain_ms": time_device(lambda b=b, v=v, th=th:
+                                    pallas_nms.nms_alive_plain(b, v, th)),
+            **k1_bound(b, v, th)}
+    main = k1["main_path_7x1000"]
     emit({"phase": "times", "model": NAME, "card": card,
           "main_path_ms_per_scene": {k: times[k] for k in on_card},
           "main_path_peak_mib": {k: times[k + "_peak_mib"] for k in on_card},
-          "k1_ms": k1_ms, "plain_ms": plain_ms, "k1_bound_ms": bound_ms,
-          "k1_pairs_needed": pairs, "k1_pairs_all": int(
-              T * b_main.shape[1] * (b_main.shape[1] - 1) // 2),
-          "k1_bytes": nbytes, "warmup": WARMUP, "reps": REPS})
+          "k1_ms": main["ms"], "plain_ms": main["plain_ms"],
+          "k1_bound_ms": main["bound_ms"],
+          "k1_pairs_needed": main["pairs_needed"],
+          "k1_pairs_full": main["pairs_full"],
+          "k1_pairs_culled": main["pairs_culled"],
+          "k1_pairs_all": main["pairs_all"], "k1_bytes": main["bytes"],
+          "k1_by_case": k1, "warmup": WARMUP, "reps": REPS})
     return {"launches": launches, "k2_launches": k2_launches,
-            "max_abs_err": k1_err, "ms": k1_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "max_abs_err": k1_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "dense_ms": k1["dense_cluster_7x1000"]["ms"]}
 
 
 def k2_compare(features, table, weights, bias):
@@ -812,9 +900,9 @@ def main() -> int:
              for name in secs}
     check(set(secs) >= {"nms_kernel.cu", "gather_conv_kernel.cu"},
           f"built {sorted(secs)}")
-    spills = [ln for ln in ptxas["gather_conv_kernel.cu"]
-              if re.search(r"[1-9]\d* bytes spill", ln)]
-    check(not spills, f"K2 spills registers: {spills}")
+    spills = [ln for name in ("nms_kernel.cu", "gather_conv_kernel.cu")
+              for ln in ptxas[name] if re.search(r"[1-9]\d* bytes spill", ln)]
+    check(not spills, f"K1 or K2 spills registers: {spills}")
     emit({"phase": "device_build", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -836,6 +924,7 @@ def main() -> int:
         "matched": True, "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "dense_cluster_ms": k1["dense_ms"],
         "library_ms": None}, {
         "name": "K2 sparse gather-conv",
         "route": "cuda",

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_profile.py [--model pp_forecast_n3dtf|forecast_n3dtf]
                                      [--scene uniform|clustered] [--iters 5]
+                                     [--decode-ops]
                                      [--trace PATH]
 
 Builds the full-width model with seeded random weights and the scenes of
@@ -12,9 +13,17 @@ neck -> head -> decode_and_nms), each under its own `record_function`
 range, and traces `--iters` runs with torch.profiler after 3 warm-up runs.
 Prints JSON lines: the device time of each stage, the wall time (median of
 5 runs synchronised after every stage) and peak device memory of each stage,
-the 15 kernels with the most device time, the dense conv FLOPs of one run
-and the device's busy share of the traced wall time. TF32 is off, as in
-chip_smoke.py. `--trace` writes the Chrome trace.
+the 15 kernels with the most device time, every kernel of the port's own
+(PORT_KERNELS: K1's nms_* passes, K2's narrow_kernel and wide_kernel),
+the dense conv FLOPs of one run and the
+device's busy share of the traced wall time. `--decode-ops` then traces
+decode_and_nms alone on one run's head outputs: decode_single,
+rotate_nms, top_k_stable (the stable sort), rotate_nms_alive (K1) and
+_compact (the survivor compaction) each run under a record_function range
+of their name, wrapped around the library function here; it prints each
+range's and each aten op's host and device time per run, every kernel of
+the stage, and the stage's synced wall. TF32 is off, as in chip_smoke.py.
+`--trace` writes the Chrome trace.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -37,6 +47,8 @@ from chip_smoke import (MAX_POINTS, NAME, VOX_NAME,  # noqa: E402
                         scene_blobs, scene_clustered, scene_lidar,
                         scene_uniform)
 
+# the names of the port's own kernels (csrc/*.cu)
+PORT_KERNELS = r"nms_|narrow_kernel|wide_kernel"
 STAGES = {NAME: ("reader", "neck", "head", "decode_and_nms"),
           VOX_NAME: ("voxelize", "middle", "z_crush", "neck", "head",
                      "decode_and_nms")}
@@ -62,12 +74,74 @@ def conv_flops(model, pts, valid):
     return total[0]
 
 
+def decode_ops(cfg, preds, iters, card, dev_us):
+    """decode_and_nms alone on fixed head outputs, split by operation: each
+    library function below runs under a record_function range of its name
+    (the ranges nest: rotate_nms holds top_k_stable, K1 and _compact)."""
+    from futuredet_torch.eval import decode
+    from futuredet_torch.ops import nms
+    names = {(decode, "decode_single"), (decode, "rotate_nms"),
+             (nms, "top_k_stable"), (nms, "rotate_nms_alive"),
+             (nms, "_compact")}
+    saved = {(m, n): getattr(m, n) for m, n in names}
+
+    def ranged(name, fn):
+        def inner(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return inner
+
+    for (m, n), fn in saved.items():
+        setattr(m, n, ranged(n, fn))
+    try:
+        walls = []
+        with torch.no_grad():
+            for _ in range(3):
+                decode.decode_and_nms(cfg, preds)
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                decode.decode_and_nms(cfg, preds)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    with record_function("decode_and_nms"):
+                        decode.decode_and_nms(cfg, preds)
+                torch.cuda.synchronize()
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    events = prof.key_averages()
+    ranges = {n for _, n in names} | {"decode_and_nms"}
+    print(json.dumps({"decode_stage_wall_ms_synced": statistics.median(walls),
+                      "card": card}), flush=True)
+    rows = [e for e in events if e.key in ranges or (
+        e.key.startswith("aten::") and e.cpu_time_total > 0)]
+    rows.sort(key=lambda e: e.cpu_time_total, reverse=True)
+    for e in rows[:30]:
+        print(json.dumps({"decode_op": e.key, "calls_per_run":
+                          e.count / iters, "host_ms_per_run":
+                          e.cpu_time_total / 1e3 / iters,
+                          "device_ms_per_run": dev_us(e) / 1e3 / iters}),
+              flush=True)
+    for e in events:
+        if str(getattr(e, "device_type", "")).endswith("CUDA") \
+                and dev_us(e) > 0 and e.key not in ranges:
+            print(json.dumps({"decode_kernel": e.key[:120], "calls_per_run":
+                              e.count / iters, "device_ms_per_run":
+                              dev_us(e) / 1e3 / iters}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default=NAME, choices=tuple(STAGES))
     ap.add_argument("--scene", default="uniform",
                     choices=("uniform", "clustered"))
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--decode-ops", action="store_true",
+                    help="split decode_and_nms by operation")
     ap.add_argument("--trace", help="write the Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -171,6 +245,16 @@ def main() -> int:
         print(json.dumps({"kernel": e.key[:120], "calls_per_run":
                           e.count / args.iters, "device_ms_per_run":
                           dev_us(e) / 1e3 / args.iters}), flush=True)
+    for e in kernels:
+        if re.search(PORT_KERNELS, e.key):
+            print(json.dumps({"port_kernel": e.key[:120], "card": card,
+                              "calls_per_run": e.count / args.iters,
+                              "device_ms_per_run":
+                              dev_us(e) / 1e3 / args.iters}), flush=True)
+    if args.decode_ops:
+        with torch.no_grad():
+            preds = model(pts, valid)
+        decode_ops(cfg, preds, args.iters, card, dev_us)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                     exist_ok=True)

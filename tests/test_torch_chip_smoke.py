@@ -1,5 +1,6 @@
 """chip_smoke.py's checks and bounds, on the CPU with synthetic inputs: the
-card-against-CPU detection matcher at near ties, and K2's two bounds."""
+card-against-CPU detection matcher at near ties, K1's pair counts and
+bound, and K2's two bounds."""
 import os
 import sys
 import types
@@ -145,3 +146,43 @@ def test_k2_bounds(cin, cout, route):
         assert got["tc_bound_ms"] <= got["bound_ms"]
     else:
         assert got["tc_bound_ms"] is None
+
+
+def test_k1_pairs_and_bound():
+    """A suppression chain of 5 boxes (2 m, 1.2 m apart, threshold 0.1):
+    0 kills 1, 2 kills 3, 0, 2 and 4 survive. Needed tests: 0 against 1-4,
+    2 against 3 and 4; of these the cull skips (0, 3) and (0, 4), whose
+    circles lie apart. The bound counts the others at the full test."""
+    b = torch.zeros(1, 5, 5)
+    b[0, :, 0] = torch.arange(5) * 1.2
+    b[0, :, 2:4] = 2.0
+    valid = torch.ones(1, 5, dtype=torch.bool)
+    got = cs.k1_bound(b, valid, 0.1)
+    assert (got["pairs_needed"], got["pairs_full"], got["pairs_culled"],
+            got["pairs_all"]) == (6, 4, 2, 10)
+    ops = 4 * cs.K1_OPS_PER_PAIR + 2 * cs.K1_OPS_PER_CULL
+    nbytes = 5 * 5 * 4 + 2 * 5
+    assert got["bytes"] == nbytes
+    assert got["bound_ms"] == pytest.approx(
+        max(nbytes / 3.35e12, ops / 67e12) * 1e3)
+    # an invalid victim needs no test (0 and 2 against 4 go); below a zero
+    # threshold none is culled
+    valid[0, 4] = False
+    assert cs.k1_pairs(b, valid, 0.1)["needed"] == 4
+    neg = cs.k1_pairs(b, torch.ones(1, 5, dtype=torch.bool), -1.0)
+    assert (neg["needed"], neg["culled"]) == (4, 0)
+
+
+def test_k1_case_inputs():
+    """The dense cluster leaves the cull no pair; the margin pairs straddle
+    its edge, each skipped one with plain IoU exactly 0."""
+    from futuredet_torch.ops.pallas_nms import cull_skips
+    from futuredet_torch.ops.rotated_iou import pairwise_iou_bev
+    rng = np.random.default_rng(0)
+    dense = torch.from_numpy(cs.k1_dense_cluster(2, 300, rng))
+    assert not bool(cull_skips(dense, 0.2).any())
+    m = torch.from_numpy(cs.k1_margin_pairs(101, rng))
+    skip = cull_skips(m, 0.2)
+    pair = skip[torch.arange(0, 100, 2), torch.arange(1, 101, 2)]
+    assert 0 < int(pair.sum()) < 50
+    assert not bool((skip & (pairwise_iou_bev(m, m).T != 0)).any())

@@ -4,11 +4,18 @@ only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from futuredet_torch.ops.pallas_nms import nms_alive_plain, rotate_nms_alive
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from futuredet_torch.ops.pallas_nms import (  # noqa: E402
+    nms_alive_plain, rotate_nms_alive)
 
 
 def rand_nms_boxes(G, n, rng, span=40.0):
@@ -19,32 +26,105 @@ def rand_nms_boxes(G, n, rng, span=40.0):
         rng.uniform(-np.pi, np.pi, (G, n))], -1).astype(np.float32)
 
 
+def k1_case(case, G, n, rng):
+    """(boxes (G, n, 5), valid (G, n), threshold) of a named card case."""
+    valid = np.ones((G, n), bool)
+    thr = 0.2
+    nb = rand_nms_boxes(G, n, rng)
+    if case == "mixed":
+        # problem 0 a suppression chain as deep as N, problem 1 axis-aligned
+        # boxes with shared (collinear) edges, 5% invalid elsewhere
+        nb[0] = 0.0
+        nb[0, :, 0] = np.arange(n) * 1.2
+        nb[0, :, 2:4] = 2.0
+        nb[1, :100] = 0.0
+        nb[1, :100, 0] = np.repeat(np.arange(50) * 2.0, 2)
+        nb[1, :100, 1] = np.tile([0.0, 1.0], 50)
+        nb[1, :100, 2:4] = 2.0
+        valid = rng.random((G, n)) < 0.95
+        valid[0] = True
+        thr = 0.1
+    elif case == "spread":
+        nb = rand_nms_boxes(G, n, rng, span=61.2)
+    elif case == "chain":
+        nb[:] = 0.0
+        nb[:, :, 0] = np.arange(n) * 1.2
+        nb[:, :, 2:4] = 2.0
+        nb[:, :, 4] = -np.pi / 2
+        thr = 0.1
+    elif case == "collinear_grid":
+        i = np.arange(n)
+        nb[:] = 0.0
+        nb[:, :, 0] = (i % 20) * 2.0
+        nb[:, :, 1] = (i // 20) * 1.0          # rows half-overlapping
+        nb[:, :, 2:4] = 2.0
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "dense_cluster":
+        nb = chip_smoke.k1_dense_cluster(G, n, rng)
+    elif case == "cluster_15m":
+        nb = chip_smoke.k1_dense_cluster(G, n, rng)
+        nb[..., :2] *= 7.5 / 0.7
+    elif case == "cull_margin":
+        nb = np.stack([chip_smoke.k1_margin_pairs(n, rng) for _ in range(G)])
+    elif case.startswith("non_finite"):
+        bad = rng.random((G, n)) < 0.05
+        field = rng.integers(0, 5, (G, n))
+        vals = rng.choice(np.float32([np.nan, np.inf, -np.inf]), (G, n))
+        for f in range(5):
+            nb[..., f] = np.where(bad & (field == f), vals, nb[..., f])
+        if case == "non_finite_thr_negative":
+            thr = -1.0
+    elif case == "thr_negative":
+        thr = -1.0
+    return (torch.from_numpy(nb).cuda(), torch.from_numpy(valid).cuda(),
+            thr)
+
+
+# (case, G, N): the edges of the 64-box blocks, the main path's 7 x 1000,
+# B = 4 (28 problems), N at the kernel's limit, and inputs that stress the
+# cull, the walk and the arithmetic
+K1_CASES = [
+    ("spread", 1, 1), ("spread", 1, 63), ("spread", 1, 64), ("spread", 1, 65),
+    ("mixed", 7, 1000), ("spread", 7, 1000), ("spread", 28, 1000),
+    ("spread", 1, 8192), ("chain", 1, 1000), ("collinear_grid", 1, 400),
+    ("all_invalid", 3, 200), ("dense_cluster", 7, 1000),
+    ("cluster_15m", 7, 1000), ("cull_margin", 2, 1000),
+    ("non_finite", 2, 300), ("non_finite_thr_negative", 2, 300),
+    ("thr_negative", 2, 300),
+]
+
+
 @pytest.mark.cuda
-def test_k1_matches_plain_version_on_the_card():
-    """The 7 x 1000 main-path shape with a 1000-deep suppression chain in
-    problem 0 and axis-aligned boxes with collinear edges in problem 1."""
+@pytest.mark.parametrize("case,G,n", K1_CASES)
+def test_k1_matches_plain_version_on_the_card(case, G, n):
+    """K1 against its plain version on the card: identical survivors, one
+    launch per call, every kill bit of a pair j > i equal to plain IoU >
+    thr (a pair the cull skips has plain IoU exactly 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    G, n = 7, 1000
-    rng = np.random.default_rng(0)
-    nb = rand_nms_boxes(G, n, rng)
-    nb[0] = 0.0
-    nb[0, :, 0] = np.arange(n) * 1.2          # each overlaps its neighbours
-    nb[0, :, 2:4] = 2.0
-    nb[1, :100] = 0.0
-    nb[1, :100, 0] = np.repeat(np.arange(50) * 2.0, 2)   # shared edges
-    nb[1, :100, 1] = np.tile([0.0, 1.0], 50)
-    nb[1, :100, 2:4] = 2.0
-    boxes = torch.from_numpy(nb).cuda()
-    valid = torch.from_numpy(rng.random((G, n)) < 0.95).cuda()
-    valid[0] = True
+    from futuredet_torch.ops.pallas_nms import cull_skips, launch_with_mask
+    from futuredet_torch.ops.rotated_iou import pairwise_iou_bev
+    boxes, valid, thr = k1_case(case, G, n, np.random.default_rng(n + G))
     before = rotate_nms_alive.launches
-    got = rotate_nms_alive(boxes, valid, 0.1)
+    got = rotate_nms_alive(boxes, valid, thr)
     torch.cuda.synchronize()
     assert rotate_nms_alive.launches == before + 1
-    assert torch.equal(got, nms_alive_plain(boxes, valid, 0.1))
-    assert int(got[0].sum()) == n // 2
+    want = nms_alive_plain(boxes, valid, thr)
+    assert torch.equal(got, want)
     assert not bool(got[~valid].any())
+    alive, mask = launch_with_mask(boxes, valid, thr)
+    assert torch.equal(alive, want)
+    later = torch.ones(n, n, dtype=torch.bool, device="cuda").triu_(1)
+    kill = pairwise_iou_bev(boxes, boxes).transpose(-1, -2) > thr
+    assert torch.equal(chip_smoke.kill_bits(mask, n) & later, kill & later)
+    skipped = int((cull_skips(boxes, thr) & later).sum())
+    if case in ("mixed", "chain"):     # greedy keeps every other box
+        assert int(got[0].sum()) == n // 2
+    if case in ("dense_cluster", "thr_negative") or thr < 0:
+        assert skipped == 0
+    if case in ("spread", "cull_margin") and n >= 1000:
+        assert skipped > 0
 
 
 def k2_case(rng, V, N, cin, cout, absent=0.6):
