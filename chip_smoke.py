@@ -64,6 +64,56 @@ CUDA toolkit. Phases, one JSON line each (several for some):
      (bound_ms) and, for the wide family, at the 3xTF32 tensor-core rate
      (tc_bound_ms) for all 20 convs, each with its route.
 
+  Training of the sparse VoxelNet, forecast_n3dtf:
+  10. main path: full width from build_detector(cfg, seed=0).train() on a
+      lidar-family scene of futuredet_torch/data/synthetic.py (~288k points,
+      under max_voxels_train voxels, 48 objects with GT boxes for 7
+      timesteps, M = 500), through futuredet_torch.train.trainer.train for 5
+      steps into a temporary work dir. Counts zeroed before each step and
+      read after it: 20 K2 forward launches, 19 K2 input-gradient (dx)
+      launches and no K1; every metric finite. Then 10 steps of a fresh
+      model on one repeated batch must bring the loss below step 0's, and
+      the trainer's checkpoint restored into a fresh model and optimizer
+      must give their saved state exactly.
+  11. K2's backward against its plain version on the card, on the 20 convs
+      of the first train step as the main path gave them (x, W, b, the
+      table or the strided conv's inverse table, and dy): each of the 19 dx
+      launches against torch.autograd through gather_conv_plain (max |diff|
+      <= 1e-5 * max(1, max|plain|)), bit-identical when launched again;
+      the Function's dW and db against the plain autograd ones (DW_RTOL of
+      max(1, max|plain|)). Each line names the dx conv's route and bounds.
+  12. one train step of the same weights and batch on the CPU (plain
+      versions, full width), with every BatchNorm bias raised by
+      BN_BIAS_SHIFT so that no ReLU input lies near 0 (a ReLU decision that
+      rounding flips moves the gradients before it by per cents, whatever
+      the arithmetic): loss within 1e-4 relative, global gradient norm
+      within 1e-3, running statistics within 1e-4 of max(1, max|CPU|),
+      each gradient within GRAD_FRACTION of its max |g| (tensors zero up to
+      rounding, the conv biases under a train-mode BatchNorm, only small);
+      the CPU's gradients fed to both optimizers give updates within
+      PARAM_ATOL.
+  13. times: ms per train step (2 warm-ups, median of 10, host clock around
+      synced steps), split into targets, forward + loss, backward and
+      optimizer; peak memory; per step the K2 forward and dx ms, the dW + db
+      ms (PyTorch ops), the plain versions' ms and the bounds.
+
+  Training of the pillar model, pp_forecast_n3dtf:
+  14. main path: full width (512x512 canvas, B = 1) from
+      build_detector(cfg, seed=0).train() on a lidar-family scene of ~150k
+      points with GT boxes for 7 timesteps, through trainer.train for 5
+      steps. Counts zeroed before each step and read after it: no K1 and no
+      K2 launch (the pillar train path reaches no kernel); every metric
+      finite. Then 10 steps on one repeated batch must bring the loss below
+      step 0's, and the checkpoint must round-trip exactly, as in phase 10.
+  15. one train step card against the CPU, to phase 12's limits, with the
+      CPU run in float64 as the reference: this model's float32 gradients
+      are conditioned worse than the limit (the CPU's own float32 run lies
+      up to 1.7e-2 of a tensor's max from the float64 one, in the reader's
+      first linear layer and the neck's first block, whose sums over 65,536
+      positions of a zero-mean gradient cancel), so the line also gives the
+      CPU's float32 run against the reference, and the card's against it.
+  16. times: as phase 13, without the sparse convs.
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
@@ -84,6 +134,26 @@ NAME = "pp_forecast_n3dtf"
 MAX_POINTS = 150000
 VOX_NAME = "forecast_n3dtf"
 WARMUP, REPS = 3, 20
+TRAIN_WARMUP, TRAIN_REPS = 2, 10
+# the lidar-family train scene: clutter points (with 48 objects of up to
+# 500 points, ~288k points in all, ~60k voxels) and its seed
+TRAIN_CLUTTER, TRAIN_SEED = 280000, 21
+# the pillar train scene: ~150k points (MAX_POINTS) of the same family
+PILLAR_TRAIN_CLUTTER = 140000
+TRAIN_STEPS, OVERFIT_STEPS = 5, 10
+DW_RTOL = 1e-5            # dW, db vs plain autograd: sums over the sites
+# card vs CPU train step (phase 12)
+LOSS_RTOL, NORM_RTOL, STAT_RTOL = 1e-4, 1e-3, 1e-4
+# of each tensor's max |g|. 1e-3 held 427 of the 433 tensors; the other 6
+# (up to 4.5e-3 on an NVIDIA H100 80GB HBM3 at 700 W) lie in task 0's
+# forecast conv, whose gradient sums those of the 7 chained heads, and in
+# the neck's last block, each just before a train-mode BatchNorm, whose
+# input gradient sums to zero per channel: sums of 32,400 terms that
+# cancel, for which their own max is no scale of the rounding
+GRAD_FRACTION = 1e-2
+ZERO_FRACTION = 1e-6      # of the model's max |g|: zero up to rounding
+PARAM_ATOL = 1e-6         # AdamW updates of the same gradients
+BN_BIAS_SHIFT = 3.0
 HM_ATOL = 1e-3            # card vs CPU, fp32 convs in another order
 CANVAS_ATOL = 1e-4        # card vs CPU reader output, sums in another order
 VOXEL_FEAT_ATOL = 1e-6    # card vs CPU voxel means, the same adds in order
@@ -293,13 +363,13 @@ def check_detections_match(cfg, gpu_det, cpu_det, score_err):
     return (int(gpu_det.valid.sum()), int(cpu_det.valid.sum()), let_off)
 
 
-def time_host(fn):
+def time_host(fn, warmup=WARMUP, reps=REPS):
     """Median wall ms of fn() ending in a synchronize."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ts = []
-    for _ in range(REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -872,6 +942,539 @@ def voxelnet_path(dev, card):
             "k1_launches": launches["k1"]}
 
 
+def state_equal(a, b) -> bool:
+    """Nested state dicts (tensors, numbers, lists, dicts) equal exactly."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(state_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(state_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def grad_ratios(got, want):
+    """Per tensor max |got - want| / max |want|; None for a tensor whose
+    max |want| is below ZERO_FRACTION of the model's largest (zero up to
+    rounding: a conv bias under a train-mode BatchNorm), checked small on
+    both sides."""
+    top = max(float(w.abs().max()) for w in want.values())
+    out = {}
+    for name, w in want.items():
+        g = got[name]
+        check(g.shape == w.shape, f"gradient shape of {name}")
+        scale = float(w.abs().max())
+        if scale <= ZERO_FRACTION * top:
+            check(float(g.abs().max()) <= 2 * ZERO_FRACTION * top,
+                  f"{name}: gradient zero up to rounding on the CPU, "
+                  f"{float(g.abs().max())} on the card")
+            out[name] = None
+        else:
+            out[name] = float((g - w).abs().max()) / scale
+    return out
+
+
+def shift_bn_biases(model) -> None:
+    """Raise every BatchNorm bias by BN_BIAS_SHIFT: no ReLU input then lies
+    near 0, where fp32 rounding can flip a ReLU decision between two
+    devices."""
+    from futuredet_torch.models.readers import MaskedBatchNorm
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (MaskedBatchNorm, torch.nn.BatchNorm2d)):
+                m.bias.add_(BN_BIAS_SHIFT)
+
+
+def dx_operands(entry):
+    """The K2 call of a recorded conv's input gradient: (dy, the table it
+    gathers over, the weights it takes), as subm_conv_dx makes them."""
+    w, inv = entry["w"], entry["inv"]
+    if inv is None:
+        return (entry["dy"], entry["table"],
+                torch.flip(w, (0,)).transpose(1, 2).contiguous())
+    return entry["dy"], inv, w.transpose(1, 2).contiguous()
+
+
+def dw_bound(features, table, dy):
+    """The least time of dW = gather(x)^T @ dy and db = sum(dy): x, the
+    table and dy read once, dW and db written once; 2 * present pairs *
+    Cin * Cout operations at the fp32 peak."""
+    V, cin = features.shape
+    cout = dy.shape[1]
+    present = int(((table >= 0) & (table < V)).sum())
+    nbytes = 4 * (features.numel() + table.numel() + dy.numel()
+                  + 27 * cin * cout + cout)
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    ops_ms = 2 * present * cin * cout / FP32_PEAK * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def train_batch(cfg, seed, device, n_clutter):
+    """A train scene of phases 10-16: one lidar-family sample of
+    futuredet_torch/data/synthetic.py per device batch (48 objects with GT
+    boxes for 7 timesteps, M = 500, over `n_clutter` clutter points)."""
+    from futuredet_torch.data.synthetic import SCENE_FAMILIES, make_batch
+    n_obj, ppo, mode = SCENE_FAMILIES["lidar"]
+    return make_batch(cfg, cfg.train.batch_size_per_device, seed=seed,
+                      device=device, n_objects=n_obj, points_per_object=ppo,
+                      n_clutter=n_clutter, max_objs=500, clutter_mode=mode)
+
+
+def run_trainer(cfg, dev, clutter, hooks):
+    """futuredet_torch.train.trainer.train for TRAIN_STEPS steps (one epoch)
+    into a temporary work dir, then its checkpoint restored into a fresh
+    model and optimizer. Returns (state, the checkpoint's round trip, the
+    trainer's log lines, its seconds)."""
+    import dataclasses
+    import itertools
+    import tempfile
+
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.train import trainer
+    from futuredet_torch.train.checkpoints import CheckpointManager
+    from futuredet_torch.train.step import make_optimizer
+
+    cfg_run = cfg.replace(train=dataclasses.replace(
+        cfg.train, total_epochs=1, log_interval=TRAIN_STEPS))
+    logs = []
+    with tempfile.TemporaryDirectory() as work:
+        stream = (train_batch(cfg, TRAIN_SEED + i, "cpu", clutter)
+                  for i in itertools.count())
+        t0 = time.perf_counter()
+        state = trainer.train(cfg_run, stream, steps_per_epoch=TRAIN_STEPS,
+                              work_dir=work, hooks=hooks, device=dev,
+                              log_fn=logs.append)
+        train_s = time.perf_counter() - t0
+        mgr = CheckpointManager(work)
+        fresh = build_detector(cfg, device=dev, seed=1).train()
+        fresh_opt = make_optimizer(cfg, fresh, TRAIN_STEPS)
+        restored = mgr.restore(fresh, fresh_opt)
+        ckpt = {"steps": mgr.all_steps(), "restored_step": restored,
+                "model_identical": state_equal(fresh.state_dict(),
+                                               state.model.state_dict()),
+                "optimizer_identical": state_equal(
+                    fresh_opt.state_dict(), state.optimizer.state_dict())}
+    check(ckpt["steps"] == [TRAIN_STEPS]
+          and ckpt["restored_step"] == TRAIN_STEPS
+          and ckpt["model_identical"] and ckpt["optimizer_identical"],
+          f"{cfg.name}: checkpoint round trip {ckpt}")
+    return state, ckpt, logs, train_s
+
+
+def overfit(cfg, dev, clutter):
+    """OVERFIT_STEPS train steps of a fresh model on one repeated batch;
+    the loss after them must lie below step 0's. Returns (model, optimizer,
+    batch, the step losses, the loss after)."""
+    from futuredet_torch.data.targets import build_targets_batch
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.models.losses import center_head_loss
+    from futuredet_torch.train.step import make_optimizer, train_step
+
+    batch = train_batch(cfg, TRAIN_SEED, dev, clutter)
+    model = build_detector(cfg, device=dev, seed=0).train()
+    opt = make_optimizer(cfg, model, OVERFIT_STEPS)
+    losses = [float(train_step(model, opt, batch, i)["loss"])
+              for i in range(OVERFIT_STEPS)]
+    with torch.no_grad():
+        after = float(center_head_loss(
+            cfg.model.head, model(batch["points"], batch["points_valid"]),
+            build_targets_batch(cfg, batch["targets_raw"]))["loss"])
+    check(math.isfinite(after) and after < losses[0],
+          f"{cfg.name}: loss {losses[0]} -> {after} after {OVERFIT_STEPS} "
+          "steps on one batch")
+    return model, opt, batch, losses, after
+
+
+def train_cross_check(cfg, dev, clutter, reference=torch.float32):
+    """One train step of the same weights and batch on the card and on the
+    CPU (plain versions, full width), every BatchNorm bias raised by
+    BN_BIAS_SHIFT: emits the phase's line and checks the card against the
+    CPU run in `reference` precision. In float64 the line also gives the
+    CPU's own float32 run against it, and the card's against that run."""
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.train.step import (apply_update, forward_backward,
+                                            make_optimizer)
+    runs = {"card": (dev, torch.float32), "cpu": ("cpu", torch.float32)}
+    if reference == torch.float64:
+        runs["cpu64"] = ("cpu", torch.float64)
+    nets = {}
+    for where, (d, dtype) in runs.items():
+        m = build_detector(cfg, device=d, seed=0).train()
+        shift_bn_biases(m)
+        b_ = train_batch(cfg, TRAIN_SEED, d, clutter)
+        if dtype == torch.float64:
+            m = m.double()
+            b_ = dict(b_, points=b_["points"].double())
+        t0 = time.perf_counter()
+        out = forward_backward(m, b_)
+        if where == "card":
+            torch.cuda.synchronize()
+        nets[where] = (m, float(out["loss"].detach()),
+                       time.perf_counter() - t0)
+    ref = "cpu64" if "cpu64" in nets else "cpu"
+    (mr, lr, _), (mg, lg, card_s) = nets[ref], nets["card"]
+    want = {n: p.grad.double() for n, p in mr.named_parameters()}
+    grads = {w: {n: p.grad.double().cpu() for n, p in nets[w][0]
+                 .named_parameters()} for w in ("card", "cpu")}
+    ratios = grad_ratios(grads["card"], want)
+    real = {n: r for n, r in ratios.items() if r is not None}
+    worst = max(real, key=real.get)
+
+    def norm(g):
+        return float(torch.sqrt(sum(torch.sum(t ** 2) for t in g.values())))
+
+    norm_r, norm_g = norm(want), norm(grads["card"])
+    loss_err = abs(lg - lr) / abs(lr)
+    stats_r = {n: t.double() for n, t in mr.named_buffers()
+               if n.endswith(("running_mean", "running_var"))}
+    stats_g = {n: t.double().cpu() for n, t in mg.named_buffers()
+               if n in stats_r}
+    stat_err = max(float((stats_g[n] - t).abs().max())
+                   / max(1.0, float(t.abs().max()))
+                   for n, t in stats_r.items())
+    line = {"phase": "train_cpu_cross_check", "model": cfg.name,
+            "reference": f"cpu_{str(reference).split('.')[-1]}",
+            "cpu_s": round(nets[ref][2], 3), "card_s": round(card_s, 3),
+            "bn_bias_shift": BN_BIAS_SHIFT, "loss_card": lg,
+            "loss_reference": lr, "loss_rel_err": loss_err,
+            "loss_rtol": LOSS_RTOL, "grad_norm_card": norm_g,
+            "grad_norm_reference": norm_r,
+            "grad_norm_rel_err": abs(norm_g - norm_r) / norm_r,
+            "grad_norm_rtol": NORM_RTOL, "stat_rel_err": stat_err,
+            "stat_rtol": STAT_RTOL, "worst_grad_ratio": real[worst],
+            "worst_grad_tensor": worst, "grad_fraction": GRAD_FRACTION,
+            "worst_grad_ratios": dict(sorted(real.items(),
+                                             key=lambda kv: -kv[1])[:8]),
+            "tensors_above_1e-3": sum(r > 1e-3 for r in real.values()),
+            "tensors_zero_up_to_rounding": sum(r is None
+                                               for r in ratios.values()),
+            "tensors": len(ratios)}
+    if ref == "cpu64":
+        # the float32 runs' own distance from the float64 one, and from
+        # each other: how well float32 conditions these gradients
+        for name, got, base in (("cpu32_vs_reference", grads["cpu"], want),
+                                ("card_vs_cpu32", grads["card"],
+                                 grads["cpu"])):
+            r = {n: v for n, v in grad_ratios(got, base).items()
+                 if v is not None}
+            w = max(r, key=r.get)
+            line[name] = {"worst_grad_ratio": r[w], "worst_grad_tensor": w,
+                          "tensors_above_1e-2": sum(v > 1e-2
+                                                    for v in r.values())}
+    # AdamW on the same (reference) gradients, card and CPU in float32
+    mc = nets["cpu"][0]
+    for m in (mg, mc):
+        for n, p in m.named_parameters():
+            p.grad = want[n].to(p.device, torch.float32)
+        apply_update(m, make_optimizer(cfg, m, 1), 0)
+    param_err = max(float((pg.detach().cpu() - pc.detach()).abs().max())
+                    for (_, pg), (_, pc) in zip(mg.named_parameters(),
+                                                mc.named_parameters()))
+    line.update(param_update_max_abs_err=param_err, param_atol=PARAM_ATOL)
+    emit(line)
+    check(loss_err <= LOSS_RTOL, f"{cfg.name}: train loss card vs CPU "
+          f"{loss_err}")
+    check(abs(norm_g - norm_r) <= NORM_RTOL * norm_r,
+          f"{cfg.name}: gradient norm card {norm_g} vs CPU {norm_r}")
+    check(stat_err <= STAT_RTOL, f"{cfg.name}: running statistics card vs "
+          f"CPU {stat_err}")
+    check(real[worst] <= GRAD_FRACTION,
+          f"{cfg.name}: gradient of {worst} card vs CPU: {real[worst]} of "
+          "its max")
+    check(param_err <= PARAM_ATOL, f"{cfg.name}: AdamW updates card vs CPU "
+          f"{param_err}")
+
+
+def step_times(cfg, model, opt, batch, count):
+    """ms per train step (TRAIN_WARMUP warm-ups, median of TRAIN_REPS, host
+    clock around synced steps), its split into targets, forward + loss,
+    backward and optimizer, and the peak MiB; updates continue from
+    `count`."""
+    from futuredet_torch.data.targets import build_targets_batch
+    from futuredet_torch.models.losses import center_head_loss
+    from futuredet_torch.train.step import apply_update, train_step
+    n = [count]
+
+    def one_step():
+        train_step(model, opt, batch, n[0])
+        n[0] += 1
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_host(one_step, TRAIN_WARMUP, TRAIN_REPS)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    parts = {k: [] for k in ("targets", "forward_loss", "backward",
+                             "optimizer")}
+    for r in range(TRAIN_WARMUP + TRAIN_REPS):
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        targets = build_targets_batch(cfg, batch["targets_raw"])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = center_head_loss(cfg.model.head,
+                               model(batch["points"], batch["points_valid"]),
+                               targets)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        apply_update(model, opt, n[0])
+        n[0] += 1
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if r >= TRAIN_WARMUP:
+            for k, a, z in zip(parts, t, t[1:]):
+                parts[k].append((z - a) * 1e3)
+    return step_ms, {k: statistics.median(x) for k, x in parts.items()}, \
+        peak_mib
+
+
+def train_path(dev, card):
+    """Phases 10-13. Returns K2's numbers of this path."""
+    from futuredet_torch.config import get_config
+    from futuredet_torch.models import middle as middle_mod
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.ops import sparse_conv as sc_mod
+    from futuredet_torch.train import trainer
+
+    cfg = get_config(VOX_NAME)
+    v = cfg.voxel
+
+    # 10. main path: the trainer, counts per step, conv inputs recorded --
+    k2 = pallas_gather.gather_conv
+    k1 = pallas_nms.rotate_nms_alive
+    dx_fn, apply_fn = sc_mod.subm_conv_dx, middle_mod.subm_conv_apply
+    dx_launches = [0]
+    recorded, record = [], [True]
+
+    def counting_dx(*args):
+        before = k2.launches
+        out = dx_fn(*args)
+        dx_launches[0] += k2.launches - before
+        return out
+
+    def recording_apply(x, table, w, b=None, inv=None):
+        out = apply_fn(x, table, w, b, inv)
+        if record[0]:
+            e = {"x": x.detach().clone(), "needs_dx": x.requires_grad,
+                 "table": table, "w": w.detach().clone(),
+                 "b": None if b is None else b.detach().clone(), "inv": inv}
+            recorded.append(e)
+            out.register_hook(lambda g, e=e: e.__setitem__(
+                "dy", g.detach().clone()))
+        return out
+
+    per_step = []
+
+    class Count(trainer.Hook):
+        def before_step(self, step, state, batch):
+            k2.launches = k1.launches = dx_launches[0] = 0
+
+        def after_step(self, step, state, metrics):
+            torch.cuda.synchronize()
+            record[0] = False
+            m = {k: t.detach().cpu() for k, t in metrics.items()}
+            per_step.append({
+                "step": step, "k2_forward": k2.launches - dx_launches[0],
+                "k2_dx": dx_launches[0], "k1": k1.launches,
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for t in m.values()),
+                "voxels": list(state.model.num_voxels),
+                "sites_per_stage": list(state.model.backbone.site_counts)})
+
+    sc_mod.subm_conv_dx = counting_dx
+    middle_mod.subm_conv_apply = recording_apply
+    try:
+        state, ckpt, logs, train_s = run_trainer(cfg, dev, TRAIN_CLUTTER,
+                                                 [Count()])
+    finally:
+        sc_mod.subm_conv_dx = dx_fn
+        middle_mod.subm_conv_apply = apply_fn
+    del state
+    for rec in per_step:
+        emit({"phase": "train_main_path", "model": VOX_NAME, **rec,
+              "voxel_budget": v.max_voxels_train})
+        check(rec["k2_forward"] == 20 and rec["k2_dx"] == 19
+              and rec["k1"] == 0,
+              f"train step {rec['step']}: K2 {rec['k2_forward']} forward + "
+              f"{rec['k2_dx']} dx launches, K1 {rec['k1']}")
+        check(rec["finite"], f"train step {rec['step']}: metric not finite")
+        check(max(rec["voxels"]) < v.max_voxels_train,
+              f"train step {rec['step']}: {rec['voxels']} voxels reach the "
+              f"budget {v.max_voxels_train}")
+    check(len(per_step) == TRAIN_STEPS, f"{len(per_step)} train steps")
+    check(len(recorded) == 20 and all("dy" in e for e in recorded),
+          f"{len(recorded)} convs recorded")
+    check(sum(e["needs_dx"] for e in recorded) == 19,
+          "19 convs need their input gradient")
+    model, opt, batch, losses, after = overfit(cfg, dev, TRAIN_CLUTTER)
+    emit({"phase": "train_main_path", "model": VOX_NAME,
+          "trainer_s": round(train_s, 3), "trainer_log": logs,
+          "checkpoint": ckpt, "repeated_batch_losses": losses,
+          "loss_after_repeated_batch": after})
+
+    # 11. K2's backward against its plain version on the card -------------
+    plain = pallas_gather.gather_conv_plain
+    lines, dx_err, ok = [], 0.0, True
+    for i, e in enumerate(recorded):
+        x, tab, w, b, inv, dy = (e["x"], e["table"], e["w"], e["b"],
+                                 e["inv"], e["dy"])
+        grads = {}
+        for name, fn in (("function", lambda *a: sc_mod.subm_conv_apply(
+                *a, inv)), ("plain", plain)):
+            xg = x.clone().requires_grad_(e["needs_dx"])
+            wg = w.clone().requires_grad_()
+            bg = None if b is None else b.clone().requires_grad_()
+            leaves = [wg] + ([bg] if bg is not None else []) \
+                + ([xg] if e["needs_dx"] else [])
+            grads[name] = torch.autograd.grad(fn(xg, tab, wg, bg), leaves,
+                                              dy)
+        torch.cuda.synchronize()
+        line = {"conv": i, "strided": inv is not None, "V": x.shape[0],
+                "N": tab.shape[1], "cin": x.shape[1], "cout": w.shape[2]}
+        for k, name in enumerate(["dW"] + (["db"] if b is not None else [])):
+            got, want = grads["function"][k], grads["plain"][k]
+            err = float((got - want).abs().max())
+            tol = DW_RTOL * max(1.0, float(want.abs().max()))
+            line[f"{name}_max_abs_err"], line[f"{name}_tol"] = err, tol
+            ok &= err <= tol
+        if e["needs_dx"]:
+            ops = dx_operands(e)
+            got = sc_mod.subm_conv_dx(dy, tab, w, inv)
+            again = sc_mod.subm_conv_dx(dy, tab, w, inv)
+            want = grads["plain"][-1]
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = K2_RTOL * max(1.0, float(want.abs().max()))
+            same = bool(torch.equal(got, again))
+            check(torch.equal(grads["function"][-1], got),
+                  f"conv {i}: the Function's dx is not subm_conv_dx's")
+            line.update({"dx_max_abs_err": err, "dx_tol": tol,
+                         "dx_bit_identical": same,
+                         "dx": {"V": ops[0].shape[0], "N": ops[1].shape[1],
+                                "cin": ops[2].shape[1],
+                                "cout": ops[2].shape[2],
+                                **k2_bound(*ops, None)}})
+            ok &= err <= tol and same
+            dx_err = max(dx_err, err)
+        lines.append(line)
+    emit({"phase": "k2_backward_vs_plain", "rtol_of_max_plain": K2_RTOL,
+          "dw_rtol_of_max_plain": DW_RTOL, "convs": lines})
+    check(ok, "K2's backward or the Function's dW / db differ from plain "
+          "autograd")
+
+    # 12. the same step on the CPU ---------------------------------------
+    train_cross_check(cfg, dev, TRAIN_CLUTTER)
+
+    # 13. times -------------------------------------------------------------
+    step_ms, split_ms, peak_mib = step_times(cfg, model, opt, batch,
+                                             OVERFIT_STEPS)
+    fwd = [(e["x"], e["table"], e["w"], e["b"]) for e in recorded]
+    dxs = [dx_operands(e) + (None,) for e in recorded if e["needs_dx"]]
+
+    def dw(e):
+        return lambda: (sc_mod.subm_conv_dw(e["x"], e["table"], e["dy"]),
+                        e["dy"].sum(0))
+
+    sums = {
+        "k2_forward_ms": sum(time_device(lambda a=a: k2(*a)) for a in fwd),
+        "plain_forward_ms": sum(time_device(lambda a=a: plain(*a))
+                                for a in fwd),
+        "k2_dx_ms": sum(time_device(lambda a=a: k2(*a)) for a in dxs),
+        "plain_dx_ms": sum(time_device(lambda a=a: plain(*a)) for a in dxs),
+        "library_dx_ms": sum(time_device(k2_library_call(*a)) for a in dxs),
+        "dw_db_ms": sum(time_device(dw(e)) for e in recorded),
+        "k2_forward_bound_ms": sum(k2_bound(*a)["bound_ms"] for a in fwd),
+        "k2_forward_tc_bound_ms": sum(k2_bound(*a)["tc_bound_ms"]
+                                      or k2_bound(*a)["bound_ms"]
+                                      for a in fwd),
+        "k2_dx_bound_ms": sum(k2_bound(*a)["bound_ms"] for a in dxs),
+        "k2_dx_tc_bound_ms": sum(k2_bound(*a)["tc_bound_ms"]
+                                 or k2_bound(*a)["bound_ms"] for a in dxs),
+        "dw_db_bound_ms": sum(dw_bound(e["x"], e["table"], e["dy"])
+                              ["bound_ms"] for e in recorded)}
+    emit({"phase": "train_times", "model": VOX_NAME, "card": card,
+          "train_step_ms": step_ms, "train_step_split_ms": split_ms,
+          "train_step_peak_mib": peak_mib, "per_step": sums,
+          "warmup": TRAIN_WARMUP, "reps": TRAIN_REPS,
+          "kernel_warmup": WARMUP, "kernel_reps": REPS})
+    return {"launches": sum(r["k2_forward"] + r["k2_dx"] for r in per_step),
+            "k1_launches": sum(r["k1"] for r in per_step),
+            "forward_per_step": 20, "dx_per_step": 19,
+            "dx_max_abs_err": dx_err, "train_step_ms": step_ms, **sums}
+
+
+def pillar_train_path(dev, card):
+    """Phases 14-16. Returns the launches of K1 and K2 on this path (none
+    may happen)."""
+    import dataclasses
+
+    from futuredet_torch.config import get_config
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.train import trainer
+
+    cfg = get_config(NAME)
+    cfg = cfg.replace(voxel=dataclasses.replace(cfg.voxel,
+                                                max_points=MAX_POINTS))
+    k2 = pallas_gather.gather_conv
+    k1 = pallas_nms.rotate_nms_alive
+
+    # 14. main path: the trainer, counts per step -------------------------
+    per_step = []
+
+    class Count(trainer.Hook):
+        def before_step(self, step, state, batch):
+            k2.launches = k1.launches = 0
+
+        def after_step(self, step, state, metrics):
+            torch.cuda.synchronize()
+            m = {k: t.detach().cpu() for k, t in metrics.items()}
+            per_step.append({
+                "step": step, "k1": k1.launches, "k2": k2.launches,
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for t in m.values())})
+
+    state, ckpt, logs, train_s = run_trainer(cfg, dev, PILLAR_TRAIN_CLUTTER,
+                                             [Count()])
+    del state
+    for rec in per_step:
+        emit({"phase": "train_main_path", "model": NAME, **rec})
+        check(rec["k1"] == 0 and rec["k2"] == 0,
+              f"pillar train step {rec['step']}: K1 {rec['k1']}, K2 "
+              f"{rec['k2']} launches")
+        check(rec["finite"], f"pillar train step {rec['step']}: metric not "
+              "finite")
+    check(len(per_step) == TRAIN_STEPS, f"{len(per_step)} pillar train steps")
+    model, opt, batch, losses, after = overfit(cfg, dev,
+                                               PILLAR_TRAIN_CLUTTER)
+    valid = batch["points_valid"]
+    emit({"phase": "train_main_path", "model": NAME,
+          "points": int(valid.sum()), "trainer_s": round(train_s, 3),
+          "trainer_log": logs, "checkpoint": ckpt,
+          "repeated_batch_losses": losses,
+          "loss_after_repeated_batch": after})
+
+    # 15. the same step on the CPU, in float64 ---------------------------
+    train_cross_check(cfg, dev, PILLAR_TRAIN_CLUTTER, torch.float64)
+
+    # 16. times -------------------------------------------------------------
+    step_ms, split_ms, peak_mib = step_times(cfg, model, opt, batch,
+                                             OVERFIT_STEPS)
+    emit({"phase": "train_times", "model": NAME, "card": card,
+          "train_step_ms": step_ms, "train_step_split_ms": split_ms,
+          "train_step_peak_mib": peak_mib, "warmup": TRAIN_WARMUP,
+          "reps": TRAIN_REPS})
+    return {"k1": sum(r["k1"] for r in per_step),
+            "k2": sum(r["k2"] for r in per_step)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -911,6 +1514,8 @@ def main() -> int:
 
     k1 = pillar_path(dev, card)
     vox = voxelnet_path(dev, card)
+    train = train_path(dev, card)
+    pillar_train = pillar_train_path(dev, card)
 
     print(card, flush=True)
     k2 = vox["k2"]
@@ -920,7 +1525,9 @@ def main() -> int:
         "replaces": "futuredet_tpu/ops/pallas_nms.py:82",
         "launches": k1["launches"] + vox["k1_launches"],
         "launches_by_path": {NAME: k1["launches"],
-                             VOX_NAME: vox["k1_launches"]},
+                             VOX_NAME: vox["k1_launches"],
+                             VOX_NAME + "_train": train["k1_launches"],
+                             NAME + "_train": pillar_train["k1"]},
         "matched": True, "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -930,15 +1537,24 @@ def main() -> int:
         "route": "cuda",
         "source": "futuredet_torch/csrc/gather_conv_kernel.cu",
         "replaces": "futuredet_tpu/ops/pallas_gather.py:49",
-        "launches": k1["k2_launches"] + k2["launches"],
+        "launches": k1["k2_launches"] + k2["launches"] + train["launches"],
         "launches_by_path": {NAME: k1["k2_launches"],
-                             VOX_NAME: k2["launches"]},
-        "matched": True, "max_abs_err": k2["max_abs_err"],
+                             VOX_NAME: k2["launches"],
+                             VOX_NAME + "_train": train["launches"],
+                             NAME + "_train": pillar_train["k2"]},
+        "train_launches_per_step": {"forward": train["forward_per_step"],
+                                    "dx": train["dx_per_step"]},
+        "matched": True,
+        "max_abs_err": max(k2["max_abs_err"], train["dx_max_abs_err"]),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "tc_bound_ms": k2["tc_bound_ms"],
         "library_ms": k2["library_ms"],
-        "times_are": "sums over the 20 convs of one scene"}]})
+        "times_are": "sums over the 20 convs of one scene",
+        "train_per_step": {k: train[k] for k in (
+            "train_step_ms", "k2_forward_ms", "k2_dx_ms", "plain_dx_ms",
+            "library_dx_ms", "dw_db_ms", "k2_dx_bound_ms",
+            "k2_dx_tc_bound_ms", "dw_db_bound_ms")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

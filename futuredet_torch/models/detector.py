@@ -132,11 +132,13 @@ class VoxelNetDetector(nn.Module):
 
     def voxelize(self, points: torch.Tensor, points_valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, PointVoxelMap]:
-        """Mean features (N, F) of the batch's voxels and their map."""
+        """Mean features (N, F) of the batch's voxels and their map, under
+        the voxel budget of the mode (`max_voxels_train` in training)."""
         v = self.cfg.voxel
         vm = point_voxel_map(points, points_valid, v.pc_range, v.voxel_size,
                              grid_size=v.grid_size,
-                             max_voxels=v.max_voxels_eval,
+                             max_voxels=(v.max_voxels_train if self.training
+                                         else v.max_voxels_eval),
                              max_points=v.max_points_per_voxel)
         self.num_voxels = vm.num_voxels.tolist()
         return run_means(vm), vm

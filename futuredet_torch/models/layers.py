@@ -1,7 +1,8 @@
 """Shared NN building blocks (NCHW inside, like torch).
 
 Port of `futuredet_tpu/models/layers.py`. Norm semantics match the
-reference's `build_norm_layer(dict(type="BN", eps=1e-3, momentum=0.01))`.
+reference's `build_norm_layer(dict(type="BN", eps=1e-3, momentum=0.01))`,
+with flax's running variance in training (`BatchNorm2d`).
 The blocks are flat `nn.Sequential`s so that their `state_dict` keys are the
 reference det3d keys (`.0` conv, `.1` BN, `.2` ReLU).
 """
@@ -41,6 +42,27 @@ class SplitInputConv2d(nn.Conv2d):
         return out if self.bias is None else out + self.bias[:, None, None]
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d (same parameters, buffers and keys) whose
+    training step updates `running_var` with the BIASED batch variance, as
+    flax's BatchNorm does (`futuredet_tpu/models/layers.py:43-45`); torch's
+    own update uses the unbiased one. The batch is normalised with the
+    biased variance either way."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean)
+            self.running_var.mul_(keep).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  bias: bool = True, padding: int = None,
                  conv=nn.Conv2d) -> List[nn.Module]:
@@ -49,7 +71,7 @@ def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
     at -1, as the JAX package forces with explicit padding."""
     p = (kernel - 1) // 2 if padding is None else padding
     return [conv(cin, cout, kernel, stride=stride, padding=p, bias=bias),
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU()]
 
 
@@ -65,7 +87,7 @@ class DeconvBNReLU(nn.Sequential):
     def __init__(self, cin: int, cout: int, stride: int):
         super().__init__(
             nn.ConvTranspose2d(cin, cout, stride, stride=stride, bias=False),
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU())
 
 

@@ -10,6 +10,11 @@ Port of `futuredet_tpu/models/middle.py` (`SparseConv`, `SparseBasicBlock`,
 (`ops/sparse_conv.py::subm_conv_apply`). One table per stage serves all its
 submanifold convs (spconv's indice_key, `scn.py:20,99`).
 
+Training: every BatchNorm takes its statistics per sample (the sites'
+sample index), as the JAX encoder does under `nn.vmap`, and, with
+gradients on, each strided conv builds its inverse table, over which K2
+computes that conv's input gradient.
+
 Parameters carry the reference keys (`conv_input.{0,1}`,
 `conv1.{j}.conv1/bn1/conv2/bn2`, `conv{s+1}.{0,1,3+j}`) and the spconv
 weight layout (kd, kh, kw, Cin, Cout), viewed as (27, Cin, Cout) at call
@@ -27,9 +32,10 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from ..ops.sparse_conv import (downsample_coords, make_grid, neighbor_table,
-                               out_dims_of, scatter_dense,
-                               strided_gather_table, subm_conv_apply)
+from ..ops.sparse_conv import (SparseGrid, downsample_coords, make_grid,
+                               neighbor_table, out_dims_of, scatter_dense,
+                               strided_gather_table, strided_inverse_table,
+                               subm_conv_apply)
 from .readers import MaskedBatchNorm
 
 
@@ -54,10 +60,11 @@ class SparseConv(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, table: torch.Tensor,
+                inverse_table: torch.Tensor = None) -> torch.Tensor:
         return subm_conv_apply(x, table,
                                self.weight.reshape(27, self.cin, self.cout),
-                               self.bias)
+                               self.bias, inverse_table)
 
 
 class SparseBasicBlock(nn.Module):
@@ -70,10 +77,12 @@ class SparseBasicBlock(nn.Module):
         self.conv2 = SparseConv(features, features)
         self.bn2 = MaskedBatchNorm(features)
 
-    def forward(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, table: torch.Tensor,
+                grid: SparseGrid, batch_size: int) -> torch.Tensor:
         identity = x
-        x = torch.relu(self.bn1(self.conv1(x, table), None))
-        x = self.bn2(self.conv2(x, table), None)
+        x = torch.relu(self.bn1(self.conv1(x, table), None, grid.batch,
+                                batch_size))
+        x = self.bn2(self.conv2(x, table), None, grid.batch, batch_size)
         return torch.relu(x + identity)
 
 
@@ -119,9 +128,9 @@ class SparseMiddleEncoder(nn.Module):
         x = voxel_feats[order]
         table = neighbor_table(grid, dims)
         conv, bn = self.conv_input
-        x = torch.relu(bn(conv(x, table), None))
+        x = torch.relu(bn(conv(x, table), None, grid.batch, batch_size))
         for block in self.conv1:
-            x = block(x, table)
+            x = block(x, table, grid, batch_size)
         counts = [len(grid.ids)]
         for s in range(1, 4):
             down, bn, _relu, *blocks = getattr(self, f"conv{s + 1}")
@@ -130,11 +139,14 @@ class SparseMiddleEncoder(nn.Module):
             ngrid = downsample_coords(grid, out_dims, pads)
             # the strided conv reads the previous stage's sites
             dtable = strided_gather_table(grid, ngrid, dims, pads=pads)
-            x = torch.relu(bn(down(x, dtable), None))
+            inv = (strided_inverse_table(grid, ngrid, out_dims, pads=pads)
+                   if torch.is_grad_enabled() else None)
+            x = torch.relu(bn(down(x, dtable, inv), None, ngrid.batch,
+                              batch_size))
             grid, dims = ngrid, out_dims
             table = neighbor_table(grid, dims)
             for block in blocks:
-                x = block(x, table)
+                x = block(x, table, grid, batch_size)
             counts.append(len(grid.ids))
         self.site_counts = counts
 

@@ -8,9 +8,10 @@ go through Linear+BN+ReLU, and are max-pooled straight into the full
 semantics are those of `det3d/models/readers/pillar_encoder.py:59-153`.
 
 Segment sums become `index_add_`; segment maxima become `scatter_reduce_`
-"amax" onto a -inf buffer whose untouched rows are then zeroed.
-Inference only: training BN (biased batch variance, running-stat updates)
-comes with the training slice.
+"amax" onto a -inf buffer whose untouched rows are then zeroed. Its
+gradient splits evenly among tied points, as `jax.ops.segment_max`'s does
+(ties are common: ReLU zeros, and points at the phantom floor).
+`MaskedBatchNorm` also serves the sparse middle encoder.
 """
 from __future__ import annotations
 
@@ -23,9 +24,20 @@ from .layers import BN_EPS, BN_MOMENTUM
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over a flat (N, C) point set with a validity mask. The
-    parameter and buffer names are BatchNorm1d's, so reference keys
-    (`norm.weight`, `norm.running_mean`, ...) load directly."""
+    """BatchNorm over a flat (N, C) point or site set with a validity mask.
+    The parameter and buffer names are BatchNorm1d's, so reference keys
+    (`norm.weight`, `norm.running_mean`, ...) load directly.
+
+    Training (`futuredet_tpu/models/readers.py:48-58`): the masked batch
+    mean and biased variance over cnt = max(sum(valid), 1) rows normalise
+    x, and the running statistics become 0.99 * old + 0.01 * batch. Given
+    `sample` (N,), each row's sample index in [0, num_samples), the
+    statistics are those of the JAX middle encoder under
+    `nn.vmap(axis_name="batch")` (`futuredet_tpu/models/detector.py:188-198`):
+    each sample's mean and its variance around that mean, each averaged
+    over the samples (a sample with no row counts with zeros). Without
+    `sample` they pool every row, as the pillar reader and dense towers
+    do."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -39,14 +51,63 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: torch.Tensor = None,
+                sample: torch.Tensor = None,
+                num_samples: int = 1) -> torch.Tensor:
+        return self.forward_with_running(x, valid, sample, num_samples)[0]
+
+    def forward_with_running(self, x: torch.Tensor,
+                             valid: torch.Tensor = None,
+                             sample: torch.Tensor = None,
+                             num_samples: int = 1):
+        """(normalised x, the running (mean, var) after this call). In
+        training these are the updated statistics, still differentiable in
+        the batch's, as the JAX module's variables are when a later call of
+        the same apply reads them (the pillar reader's phantom row)."""
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm training (masked batch statistics with the "
-                "biased variance) comes with the training slice")
-        del valid  # eval normalises every row with the running statistics
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            mean, var = self._batch_stats(x, valid, sample, num_samples)
+            keep = 1.0 - self.momentum
+            run_mean = keep * self.running_mean + self.momentum * mean
+            run_var = keep * self.running_var + self.momentum * var
+            with torch.no_grad():
+                self.running_mean.copy_(run_mean)
+                self.running_var.copy_(run_var)
+                self.num_batches_tracked.add_(1)
+        else:
+            # eval normalises every row with the running statistics
+            mean, var = run_mean, run_var = (self.running_mean,
+                                             self.running_var)
+        return self.normalize(x, mean, var), (run_mean, run_var)
+
+    def normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                  var: torch.Tensor) -> torch.Tensor:
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+    @staticmethod
+    def _batch_stats(x, valid, sample, num_samples):
+        w = (x.new_ones(x.shape[0]) if valid is None
+             else valid.to(x.dtype))
+        if sample is None or num_samples == 1:
+            # one sample's statistics are the pooled ones
+            cnt = torch.clamp_min(w.sum(), 1.0)
+            mean = (x * w[:, None]).sum(0) / cnt
+            var = (torch.square(x - mean) * w[:, None]).sum(0) / cnt
+            return mean, var
+        # (num_samples, N) membership: per-sample sums are one matmul each
+        member = (sample[None, :] == torch.arange(
+            num_samples, device=x.device)[:, None]).to(x.dtype)
+        onehot = member * w
+        cnt = torch.clamp_min(onehot.sum(1, keepdim=True), 1.0)
+        mean_b = (onehot @ x) / cnt                       # (S, C)
+        # each row's sample mean, broadcast by a matmul (exact: one term is
+        # 1 * mean, the others 0): the backward of an index, a scatter of N
+        # rows onto S, serialises the duplicates on the card (~17 ms a
+        # BatchNorm at full width on an NVIDIA H100 80GB HBM3 at 700 W,
+        # scripts/torch_profile.py --train)
+        centred = x - member.t() @ mean_b
+        var_b = (onehot @ torch.square(centred)) / cnt
+        return mean_b.mean(0), var_b.mean(0)
 
 
 class PFNLayer(nn.Module):
@@ -55,8 +116,20 @@ class PFNLayer(nn.Module):
         self.linear = nn.Linear(cin, units, bias=False)
         self.norm = MaskedBatchNorm(units)
 
-    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.norm(self.linear(x), valid))
+    def forward(self, x: torch.Tensor, valid: torch.Tensor,
+                phantom: torch.Tensor = None):
+        """(relu(bn(linear(x))) with the statistics of the `valid` rows, the
+        same layer applied to the `phantom` rows or None). The phantom rows
+        are normalised with the running statistics, in training the ones
+        just updated by x, and update nothing: the JAX reader calls its
+        BatchNorm on them a second time with train=False
+        (`futuredet_tpu/models/readers.py:196-202`)."""
+        y, (run_mean, run_var) = self.norm.forward_with_running(
+            self.linear(x), valid)
+        if phantom is None:
+            return torch.relu(y), None
+        ph = self.norm.normalize(self.linear(phantom), run_mean, run_var)
+        return torch.relu(y), torch.relu(ph)
 
 
 def _segment_max(values: torch.Tensor, seg: torch.Tensor,
@@ -102,7 +175,9 @@ class PillarFeatureNetDirect(nn.Module):
 
     def forward(self, points: torch.Tensor,
                 points_valid: torch.Tensor) -> torch.Tensor:
-        """points (B, P, F), points_valid (B, P) -> canvas (B, H, W, C)."""
+        """points (B, P, F), points_valid (B, P) -> canvas (B, H, W, C). In
+        training each BatchNorm pools its statistics over every in-range
+        point of the batch (the JAX reader is not under `nn.vmap`)."""
         B, P, F = points.shape
         H, W = self.grid_hw
         vx, vy = self.voxel_size
@@ -145,11 +220,8 @@ class PillarFeatureNetDirect(nn.Module):
         ok_col = ok[:, None]
         for i, layer in enumerate(self.pfn_layers):
             last = i == len(self.pfn_layers) - 1
-            x = layer(x, ok)
+            x, ph = layer(x, ok, phantom if floor else None)
             if floor:
-                # running BN stats: exact at eval, the parity regime
-                ph = layer(phantom, phantom.new_ones(phantom.shape[0],
-                                                     dtype=torch.bool))
                 ph_pt = ph if ph.shape[0] == 1 else ph[pid]
                 # max over points of max(x_p, ph) == max(pooled, ph) for any
                 # occupied pillar, so the floor is applied on the points side

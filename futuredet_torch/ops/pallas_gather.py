@@ -9,7 +9,10 @@ to find, but the kernel here is CUDA C++ for Hopper,
 
 where table[k, n] == V (the number of input rows) marks an absent
 neighbour, which adds zero. The table serves submanifold convs (N = V) and
-strided ones (N = output sites) alike.
+strided ones (N = output sites) alike, and so the backward too: a sparse
+conv's input gradient is one more K2 launch, over the same table with
+flipped, transposed weights or over the strided conv's inverse table
+(`ops/sparse_conv.py::subm_conv_dx`), counted and checked as the forward.
 
 `gather_conv` launches the kernel for CUDA tensors and runs
 `gather_conv_plain`, the plain PyTorch version, for CPU tensors. The plain
@@ -66,7 +69,12 @@ def gather_conv_plain(features: torch.Tensor, table: torch.Tensor,
 
 
 def _check(features, table, weights, bias) -> None:
-    if features.dim() != 2 or features.dtype != torch.float32:
+    # the kernel takes float32; the plain version on the CPU also float64
+    # (gradient checks)
+    dtype = features.dtype
+    if features.dim() != 2 or not (
+            dtype == torch.float32
+            or (dtype == torch.float64 and features.device.type == "cpu")):
         raise ValueError("features must be a (V, Cin) float32 tensor")
     if table.dim() != 2 or table.shape[0] != K_TAPS \
             or table.dtype != torch.int32:
@@ -74,12 +82,12 @@ def _check(features, table, weights, bias) -> None:
                          f"{tuple(table.shape)} {table.dtype}")
     if (weights.dim() != 3 or weights.shape[0] != K_TAPS
             or weights.shape[1] != features.shape[1]
-            or weights.dtype != torch.float32):
+            or weights.dtype != dtype):
         raise ValueError(f"weights must be ({K_TAPS}, Cin, Cout) float32 with "
                          f"Cin = {features.shape[1]}, got "
                          f"{tuple(weights.shape)} {weights.dtype}")
     if bias is not None and (bias.shape != (weights.shape[2],)
-                             or bias.dtype != torch.float32):
+                             or bias.dtype != dtype):
         raise ValueError("bias must be a (Cout,) float32 tensor")
     devs = {t.device for t in (features, table, weights, bias)
             if t is not None}

@@ -13,7 +13,13 @@ middle encoder (`det3d/models/backbones/scn.py:2-3`):
   * conv: `out[n] = sum_k x[table[k, n]] @ W[k]`, kernel K2
     (`ops/pallas_gather.py::gather_conv`);
   * strided conv: spconv's generative rule, every output site that
-    receives an active input under the kernel-3 stride-2 footprint.
+    receives an active input under the kernel-3 stride-2 footprint;
+  * gradients (`SparseConvFunction`, the port of the custom VJPs
+    `_subm_conv_sym_vjp` and `_strided_conv_vjp`): the input gradient is
+    again a gather-conv through K2, over the same table with flipped,
+    transposed weights (submanifold) or over the inverse table
+    (`strided_inverse_table`, strided); the weight gradient is one stacked
+    gather and one matmul per conv.
 
 Like spconv, every stage is sized per scene and no site is ever dropped,
 so there is no capacity and no drop counter. The JAX package's x-packed
@@ -27,7 +33,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .pallas_gather import gather_conv
+from .pallas_gather import K_TAPS, gather_conv
 
 
 class SparseGrid(NamedTuple):
@@ -145,10 +151,108 @@ def scatter_dense(features: torch.Tensor, grid: SparseGrid, dims,
     return canvas.reshape(batch_size, *dims, C)
 
 
+def strided_inverse_table(in_grid: SparseGrid, out_grid: SparseGrid,
+                          out_dims, kernel: int = 3,
+                          pads: Tuple[int, int, int] = (1, 1, 1)
+                          ) -> torch.Tensor:
+    """(K, N_in) int32 indices into the OUTPUT sites of a kernel-3 stride-2
+    conv: row k holds the output o with `strided_gather_table`'s
+    tab[k][o] == u, i.e. 2*o + offs[k] + 1 - pad == in_coords[u], and N_out
+    where there is none. Each input feeds at most one output per offset
+    (the parity must match), so the transpose of a strided conv is again a
+    gather-conv. Port of `futuredet_tpu/ops/sparse_conv.py:698-725`."""
+    dev = in_grid.coords.device
+    offs = torch.tensor(_offsets(kernel), device=dev)
+    shift = 1 - torch.tensor(pads, device=dev)
+    num = in_grid.coords[None] - offs[:, None] - shift        # (K, N_in, 3)
+    even = (num % 2 == 0).all(-1, keepdim=True)
+    # an odd offset lands between outputs: -1 lies outside the grid
+    oc = torch.where(even, torch.div(num, 2, rounding_mode="floor"), -1)
+    return _lookup(out_grid, in_grid.batch[None].expand(len(offs), -1), oc,
+                   out_dims)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor starting 16-byte aligned, as K2 reads it
+    (autograd may hand over a strided or offset view)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def subm_conv_dx(dy: torch.Tensor, table: torch.Tensor,
+                 weights: torch.Tensor,
+                 inverse_table: torch.Tensor = None) -> torch.Tensor:
+    """Input gradient of a sparse conv, (N_out, Cout) -> (N_in, Cin), as
+    one K2 launch:
+
+      submanifold (inverse_table None): tap k of site v reaches u exactly
+        when tap 26 - k of u reaches v, so dx = gather_conv(dy, table,
+        flip_k(W)^T) over the same table (`sparse_conv.py:646-695`);
+      strided: dx = gather_conv(dy, inverse_table, W^T), no flip
+        (`sparse_conv.py:728-768`).
+
+    Each row of dx is one thread's fixed-order sum: no atomics, so the
+    gradient is the same from run to run."""
+    if inverse_table is None:
+        w = torch.flip(weights, (0,)).transpose(1, 2)
+        return gather_conv(_aligned(dy), table, _aligned(w))
+    return gather_conv(_aligned(dy), inverse_table,
+                       _aligned(weights.transpose(1, 2)))
+
+
+def subm_conv_dw(features: torch.Tensor, table: torch.Tensor,
+                 dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient, dW[k] = gather(x, table[k])^T @ dy, in the stacked
+    form: one row gather into (N_out, 27 * Cin), n-major, and one matmul.
+    The JAX package computes it outside its kernels too
+    (`sparse_conv.py:680-689`)."""
+    cin = features.shape[1]
+    padded = torch.cat([features, features.new_zeros(1, cin)])
+    g = padded.index_select(0, table.t().reshape(-1))
+    g = g.view(table.shape[1], K_TAPS * cin)
+    return (g.t() @ dy).view(K_TAPS, cin, dy.shape[1])
+
+
+class SparseConvFunction(torch.autograd.Function):
+    """K2 forward; dx through K2 (`subm_conv_dx`) only where the input
+    needs it (the voxel features of `conv_input` do not: 5 input channels
+    are no K2 output width); dW (`subm_conv_dw`) and db = sum(dy) as
+    PyTorch ops."""
+
+    @staticmethod
+    def forward(ctx, features, table, weights, bias, inverse_table):
+        ctx.save_for_backward(features, table, weights, inverse_table)
+        return gather_conv(features, table, weights, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        features, table, weights, inverse_table = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            if inverse_table is None and table.shape[1] != len(features):
+                raise ValueError("a strided conv's input gradient needs its "
+                                 "inverse table")
+            dx = subm_conv_dx(dy, table, weights, inverse_table)
+        if ctx.needs_input_grad[2]:
+            dw = subm_conv_dw(features, table, dy)
+        if ctx.needs_input_grad[3]:
+            db = dy.sum(0)
+        return dx, None, dw, db, None
+
+
 def subm_conv_apply(features: torch.Tensor, table: torch.Tensor,
-                    weights: torch.Tensor, bias: torch.Tensor = None
-                    ) -> torch.Tensor:
+                    weights: torch.Tensor, bias: torch.Tensor = None,
+                    inverse_table: torch.Tensor = None) -> torch.Tensor:
     """Sparse conv over a gather table (submanifold or strided): features
     (N_in, Cin), table (27, N_out) int32, weights (27, Cin, Cout) ->
-    (N_out, Cout). Kernel K2 on the card, its plain version on the CPU."""
+    (N_out, Cout). Kernel K2 on the card, its plain version on the CPU.
+    Differentiable: a strided conv's input gradient needs
+    `inverse_table` (`strided_inverse_table`); a submanifold one reuses
+    `table`. Where nothing needs a gradient (inference under no_grad) K2
+    runs without the autograd Function, which would keep its inputs."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (features, weights, bias)):
+        return SparseConvFunction.apply(features, table, weights, bias,
+                                        inverse_table)
     return gather_conv(features, table, weights, bias)

@@ -186,11 +186,16 @@ def flax_to_state_dict(variables, cfg: ExperimentConfig
     port's detector takes with `load_state_dict(strict=True)`. Top-level
     modules (`reader`, `middle`, `z_crush`, `neck`, `head`) absent from the
     trees are left out, so the trees of one module alone, e.g.
-    {'params': {'neck': ...}, ...}, give that module's keys."""
+    {'params': {'neck': ...}, ...}, give that module's keys. A params-only
+    tree {'params': ...} maps to the parameter keys alone: gradients have
+    the params' structure, and every layout converter is linear, so a
+    gradient tree maps exactly as the weights do."""
     param_entries, stat_entries = _key_map(cfg)
     sd: Dict[str, torch.Tensor] = {}
     for tree_name, entries in (("params", param_entries),
                                ("batch_stats", stat_entries)):
+        if tree_name not in variables:
+            continue
         for path, ref_key, kind in entries:
             if path[0] not in variables["params"]:
                 continue

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile.py [--model pp_forecast_n3dtf|forecast_n3dtf]
                                      [--scene uniform|clustered] [--iters 5]
-                                     [--decode-ops]
+                                     [--decode-ops] [--train]
                                      [--trace PATH]
 
 Builds the full-width model with seeded random weights and the scenes of
@@ -22,8 +22,10 @@ rotate_nms, top_k_stable (the stable sort), rotate_nms_alive (K1) and
 _compact (the survivor compaction) each run under a record_function range
 of their name, wrapped around the library function here; it prints each
 range's and each aten op's host and device time per run, every kernel of
-the stage, and the stage's synced wall. TF32 is off, as in chip_smoke.py.
-`--trace` writes the Chrome trace.
+the stage, and the stage's synced wall. `--train` instead traces
+full-width train steps of the model on chip_smoke.py's train scene
+(`train_ops`). TF32 is off, as in chip_smoke.py. `--trace` writes the
+Chrome trace.
 """
 from __future__ import annotations
 
@@ -134,6 +136,92 @@ def decode_ops(cfg, preds, iters, card, dev_us):
                               dev_us(e) / 1e3 / iters}), flush=True)
 
 
+def train_ops(name, iters, card, dev_us):
+    """Full-width train steps of `name` on chip_smoke.py's train scene of
+    that model (phases 10-13 or 14-16), each part under its own range
+    (targets, forward_loss, backward, optimizer; chip_smoke.py phases 13
+    and 16 time them synced). Prints
+    the device's busy ms per step and busy share of the traced wall, the
+    backward split by autograd node (the engine's evaluate_function
+    events, which hold the kernels that node launched) and the 25 kernels
+    with the most device time."""
+    import dataclasses
+
+    from chip_smoke import (MAX_POINTS, PILLAR_TRAIN_CLUTTER, TRAIN_CLUTTER,
+                            TRAIN_SEED, train_batch)
+    from futuredet_torch.config import get_config
+    from futuredet_torch.data.targets import build_targets_batch
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.models.losses import center_head_loss
+    from futuredet_torch.train.step import apply_update, make_optimizer
+
+    cfg = get_config(name)
+    clutter = TRAIN_CLUTTER
+    if name == NAME:
+        cfg = cfg.replace(voxel=dataclasses.replace(cfg.voxel,
+                                                    max_points=MAX_POINTS))
+        clutter = PILLAR_TRAIN_CLUTTER
+    model = build_detector(cfg, seed=0).train()
+    opt = make_optimizer(cfg, model, 1000)
+    batch = train_batch(cfg, TRAIN_SEED, "cuda", clutter)
+    parts = ("targets", "forward_loss", "backward", "optimizer")
+
+    def step(i):
+        opt.zero_grad(set_to_none=True)
+        with record_function("targets"):
+            targets = build_targets_batch(cfg, batch["targets_raw"])
+        with record_function("forward_loss"):
+            loss = center_head_loss(
+                cfg.model.head, model(batch["points"], batch["points_valid"]),
+                targets)["loss"]
+        with record_function("backward"):
+            loss.backward()
+        with record_function("optimizer"):
+            apply_update(model, opt, i)
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            step(3 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def is_range(e):
+        # the device side of a record_function range (the parts here,
+        # torch.optim's "Optimizer.step#AdamW.step") spans kernels: no kernel
+        return (getattr(e, "is_user_annotation", False) or e.key in parts
+                or e.key.startswith("Optimizer."))
+
+    kernels = sorted((e for e in events if dev_us(e) > 0 and not is_range(e)
+                      and str(getattr(e, "device_type", "")).endswith("CUDA")),
+                     key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    print(json.dumps({
+        "card": card, "model": name, "train_iters": iters,
+        "wall_ms_per_step": wall_ms / iters,
+        "device_busy_ms_per_step": busy_ms / iters,
+        "device_busy_share": busy_ms / wall_ms}), flush=True)
+    tag = "autograd::engine::evaluate_function: "
+    nodes = sorted((e for e in events if e.key.startswith(tag)),
+                   key=dev_us, reverse=True)
+    for e in nodes[:20]:
+        print(json.dumps({"backward_node": e.key[len(tag):],
+                          "calls_per_step": e.count / iters,
+                          "host_ms_per_step": e.cpu_time_total / 1e3 / iters,
+                          "device_ms_per_step": dev_us(e) / 1e3 / iters}),
+              flush=True)
+    for e in kernels[:25]:
+        print(json.dumps({"train_kernel": e.key[:120],
+                          "calls_per_step": e.count / iters,
+                          "device_ms_per_step": dev_us(e) / 1e3 / iters}),
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default=NAME, choices=tuple(STAGES))
@@ -142,6 +230,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--decode-ops", action="store_true",
                     help="split decode_and_nms by operation")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the model's train steps instead")
     ap.add_argument("--trace", help="write the Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -157,6 +247,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+
+    if args.train:
+        train_ops(args.model, args.iters, card, dev_us)
+        return 0
     stages = STAGES[args.model]
     cfg = get_config(args.model)
     seed = 0 if args.scene == "uniform" else 1
@@ -218,11 +316,6 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0.0)
-
     stage_ms = {e.key: dev_us(e) / 1e3 / args.iters for e in events
                 if e.key in stages}
     kernels = sorted((e for e in events if dev_us(e) > 0

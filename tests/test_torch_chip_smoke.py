@@ -1,6 +1,7 @@
 """chip_smoke.py's checks and bounds, on the CPU with synthetic inputs: the
 card-against-CPU detection matcher at near ties, K1's pair counts and
-bound, and K2's two bounds."""
+bound, and K2's two bounds; and its training phases (10-16) rehearsed on
+the CPU at small configs, with K2 replaced by a counting plain version."""
 import os
 import sys
 import types
@@ -186,3 +187,141 @@ def test_k1_case_inputs():
     pair = skip[torch.arange(0, 100, 2), torch.arange(1, 101, 2)]
     assert 0 < int(pair.sum()) < 50
     assert not bool((skip & (pairwise_iou_bev(m, m).T != 0)).any())
+
+
+def test_dw_bound():
+    """dW = gather(x)^T @ dy and db = sum(dy): x, the table and dy read
+    once, dW and db written once; 2 * present pairs * Cin * Cout
+    operations at 67 TFLOP/s."""
+    V, N, cin, cout = 40, 30, 16, 32
+    table = torch.full((27, N), V, dtype=torch.int32)
+    table[13] = torch.arange(N)
+    table[0, :5] = 7
+    got = cs.dw_bound(torch.zeros(V, cin), table, torch.zeros(N, cout))
+    nbytes = 4 * (V * cin + 27 * N + N * cout + 27 * cin * cout + cout)
+    bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, 2 * 35 * cin * cout / 67e12 * 1e3
+    assert got["bound_ms"] == pytest.approx(max(bytes_ms, ops_ms))
+    assert got["bound_by"] == ("bytes" if bytes_ms > ops_ms else "operations")
+
+
+def test_grad_ratios():
+    """Each tensor's max |diff| over its max |reference|; a tensor zero up
+    to rounding (below ZERO_FRACTION of the largest) gets None and must be
+    as small on the other side."""
+    want = {"a": torch.tensor([1.0, -2.0]), "z": torch.tensor([1e-9, 0.0])}
+    got = {"a": torch.tensor([1.0, -2.002]), "z": torch.tensor([0.0, 1e-9])}
+    r = cs.grad_ratios(got, want)
+    assert r["a"] == pytest.approx(1e-3, rel=1e-3) and r["z"] is None
+    got["z"] = torch.tensor([0.0, 1e-3])
+    with pytest.raises(RuntimeError, match="zero up to rounding"):
+        cs.grad_ratios(got, want)
+
+
+def test_state_equal():
+    a = {"w": torch.ones(2), "s": [{"m": torch.zeros(1)}], "n": 3}
+    assert cs.state_equal(a, {"w": torch.ones(2), "s": [{"m": torch.zeros(1)}],
+                              "n": 3})
+    assert not cs.state_equal(a, {"w": torch.ones(2),
+                                  "s": [{"m": torch.ones(1)}], "n": 3})
+    assert not cs.state_equal(a, {"w": torch.ones(2), "s": [], "n": 3})
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_dx_operands_are_those_of_subm_conv_dx(strided):
+    """Phases 11 and 13 time and bound K2's input-gradient launches from
+    dx_operands: they are the operands subm_conv_dx hands K2."""
+    from futuredet_torch.ops import sparse_conv as sc
+    from futuredet_torch.ops.pallas_gather import gather_conv_plain
+    rng = np.random.default_rng(int(strided))
+    dims = (9, 12, 12)
+    lin = rng.choice(int(np.prod(dims)), 300, replace=False)
+    coords = np.stack(np.unravel_index(lin, dims), -1)
+    grid, _ = sc.make_grid(torch.from_numpy(coords), dims)
+    cin, cout = 8, 16
+    inv = None
+    if strided:
+        pads = (1, 1, 1)
+        out_dims = sc.out_dims_of(dims, pads)
+        out = sc.downsample_coords(grid, out_dims, pads)
+        table = sc.strided_gather_table(grid, out, dims, pads=pads)
+        inv = sc.strided_inverse_table(grid, out, out_dims, pads=pads)
+    else:
+        table = sc.neighbor_table(grid, dims)
+    w = torch.from_numpy(rng.normal(size=(27, cin, cout)).astype(np.float32))
+    dy = torch.from_numpy(
+        rng.normal(size=(table.shape[1], cout)).astype(np.float32))
+    e = {"w": w, "inv": inv, "dy": dy, "table": table}
+    assert torch.equal(gather_conv_plain(*cs.dx_operands(e)),
+                       sc.subm_conv_dx(dy, table, w, inv))
+
+
+@pytest.fixture
+def train_phases_on_the_cpu(monkeypatch):
+    """chip_smoke's training phases on the CPU: the small VoxelNet of
+    tests/test_torch_voxelnet.py and tiny_variant(pp_forecast_n3dtf) for
+    the two full-width configs, small scenes, K2 as a counting plain
+    version, and no-op device synchronisation, memory and timers."""
+    from futuredet_torch import config
+    from futuredet_torch.ops import pallas_gather
+    from futuredet_torch.ops import sparse_conv
+    from tests.test_torch_voxelnet import voxelnet_config
+    small = {cs.VOX_NAME: voxelnet_config(config),
+             cs.NAME: config.tiny_variant(config.get_config(cs.NAME))}
+    monkeypatch.setattr(config, "get_config", lambda name: small[name])
+
+    def counting_k2(*args):
+        counting_k2.launches += 1
+        return pallas_gather.gather_conv_plain(*args)
+    counting_k2.launches = 0
+    monkeypatch.setattr(pallas_gather, "gather_conv", counting_k2)
+    monkeypatch.setattr(sparse_conv, "gather_conv", counting_k2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "time_device", lambda fn: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "TRAIN_REPS", 2)
+    monkeypatch.setattr(cs, "TRAIN_CLUTTER", 1500)
+    monkeypatch.setattr(cs, "MAX_POINTS", 1024)
+    monkeypatch.setattr(cs, "PILLAR_TRAIN_CLUTTER", 800)
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    # the small models run fastest on one thread, and the suite runs in
+    # several processes at once
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield lines
+    torch.set_num_threads(n)
+
+
+def test_voxelnet_train_phases_rehearse_on_the_cpu(train_phases_on_the_cpu):
+    lines = train_phases_on_the_cpu
+    out = cs.train_path(torch.device("cpu"), "cpu")
+    assert out["launches"] == cs.TRAIN_STEPS * 39
+    assert out["k1_launches"] == 0 and out["dx_max_abs_err"] < 1e-5
+    phases = [ln.get("phase") for ln in lines]
+    assert phases.count("train_main_path") == cs.TRAIN_STEPS + 1
+    assert phases[-3:] == ["k2_backward_vs_plain", "train_cpu_cross_check",
+                           "train_times"]
+    assert lines[-2]["loss_rel_err"] == 0.0
+    assert lines[-2]["reference"] == "cpu_float32"
+
+
+def test_pillar_train_phases_rehearse_on_the_cpu(train_phases_on_the_cpu):
+    lines = train_phases_on_the_cpu
+    out = cs.pillar_train_path(torch.device("cpu"), "cpu")
+    assert out["k1"] == 0 and out["k2"] == 0
+    assert [ln["phase"] for ln in lines] == \
+        ["train_main_path"] * (cs.TRAIN_STEPS + 1) + [
+            "train_cpu_cross_check", "train_times"]
+    assert all(ln["model"] == cs.NAME for ln in lines)
+    cross = lines[-2]
+    assert cross["reference"] == "cpu_float64"
+    assert cross["card_vs_cpu32"]["worst_grad_ratio"] == 0.0
+    assert 0 < cross["cpu32_vs_reference"]["worst_grad_ratio"] < 1e-2
+    overfit = lines[cs.TRAIN_STEPS]
+    assert overfit["loss_after_repeated_batch"] < \
+        overfit["repeated_batch_losses"][0]
+    assert overfit["checkpoint"]["model_identical"]
+    assert set(lines[-1]["train_step_split_ms"]) == {
+        "targets", "forward_loss", "backward", "optimizer"}

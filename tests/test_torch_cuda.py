@@ -240,3 +240,188 @@ def test_voxelnet_rpn_stem_avoids_the_fft_conv():
         end.synchronize()
     assert start.elapsed_time(end) < 10.0
     assert torch.cuda.max_memory_allocated() - base < 2**30
+
+
+def sparse_case(rng, dims, n, strided):
+    """n random distinct sites of one sample: (grid, the conv's table, the
+    inverse table of a strided conv or None, output sites)."""
+    from futuredet_torch.ops import sparse_conv as sc
+    lin = rng.choice(int(np.prod(dims)), n, replace=False)
+    coords = np.stack([lin // (dims[1] * dims[2]), (lin // dims[2]) % dims[1],
+                       lin % dims[2]], -1)
+    grid, _ = sc.make_grid(torch.from_numpy(coords).cuda(), dims)
+    if not strided:
+        return sc.neighbor_table(grid, dims), None, n
+    pads = (1, 1, 1)
+    out_dims = sc.out_dims_of(dims, pads)
+    out = sc.downsample_coords(grid, out_dims, pads)
+    return (sc.strided_gather_table(grid, out, dims, pads=pads),
+            sc.strided_inverse_table(grid, out, out_dims, pads=pads),
+            len(out.ids))
+
+
+# (Cin, Cout, strided) of the forward conv; its input gradient runs K2 at
+# (Cout -> Cin): the strided downs give 32 -> 16 (the wide family at
+# Cout = 16), 64 -> 32 and 128 -> 64, the submanifold blocks the squares
+# with flipped weights
+DX_CASES = [(16, 32, True), (32, 64, True), (64, 128, True), (16, 16, False),
+            (32, 32, False), (64, 64, False), (128, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,strided", DX_CASES)
+def test_sparse_conv_backward_on_the_card(cin, cout, strided):
+    """The sparse conv's gradients against torch.autograd through the plain
+    version on the card: dx (one K2 launch) within 1e-5 of max(1,
+    max|plain|) and bit-identical when launched again, dW and db within
+    1e-5 of theirs; a table of absent entries only gives dx = 0 exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from futuredet_torch.ops import sparse_conv as sc
+    from futuredet_torch.ops.pallas_gather import (gather_conv,
+                                                   gather_conv_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(cin + cout + strided)
+    table, inv, n_out = sparse_case(rng, (41, 96, 96), 6000, strided)
+    x = torch.from_numpy(rng.normal(size=(6000, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=cout).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(n_out, cout)).astype(np.float32))
+    x, w, b, dy = x.cuda(), w.cuda(), b.cuda(), dy.cuda()
+    grads = {}
+    for name, fn in (("function", lambda x_, w_, b_: sc.subm_conv_apply(
+            x_, table, w_, b_, inv)),
+                     ("plain", lambda x_, w_, b_: gather_conv_plain(
+                         x_, table, w_, b_))):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        before = gather_conv.launches
+        grads[name] = torch.autograd.grad(fn(*leaves), leaves, dy)
+        torch.cuda.synchronize()
+        if name == "function":
+            assert gather_conv.launches == before + 2   # forward and dx
+    for got, want in zip(grads["function"], grads["plain"]):
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    dx = sc.subm_conv_dx(dy, table, w, inv)
+    assert torch.equal(dx, sc.subm_conv_dx(dy, table, w, inv))
+    assert torch.equal(dx, grads["function"][0])
+    absent = torch.full_like(inv if strided else table, n_out)
+    assert torch.equal(sc.subm_conv_dx(dy, table if strided else absent, w,
+                                       absent if strided else None),
+                       torch.zeros_like(x))
+
+
+@pytest.mark.cuda
+def test_small_train_step_card_against_the_cpu():
+    """One train step of a small forecast_n3dtf on the card and on the CPU
+    from the same weights and batch, BatchNorm biases raised so that no
+    ReLU input lies near 0: loss within 1e-4, each gradient within 1e-3 of
+    its max |g|, running statistics within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import dataclasses
+
+    from futuredet_torch import config
+    from futuredet_torch.data.synthetic import make_batch
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.train.step import forward_backward
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config.tiny_variant(config.get_config("forecast_n3dtf"))
+    cfg = cfg.replace(voxel=dataclasses.replace(
+        cfg.voxel, max_points=4096, max_voxels_train=4096))
+    batch = make_batch(cfg, 2, seed=3, n_objects=8, n_clutter=2000)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = build_detector(cfg, device=dev, seed=0).train()
+        chip_smoke.shift_bn_biases(m)
+        b = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                 {kk: vv.to(dev) for kk, vv in v.items()})
+             for k, v in batch.items()}
+        loss = float(forward_backward(m, b)["loss"].detach())
+        out[dev] = (loss, {n: p.grad.cpu() for n, p in m.named_parameters()},
+                    {n: t.cpu() for n, t in m.named_buffers()
+                     if n.endswith(("running_mean", "running_var"))},
+                    list(m.backbone.site_counts))
+    (lc, gc, sc_, sites_c), (lg, gg, sg, sites_g) = out["cpu"], out["cuda"]
+    assert sites_c == sites_g and sites_c[0] > 500
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    ratios = chip_smoke.grad_ratios(gg, gc)
+    assert max(r for r in ratios.values() if r is not None) <= 1e-3
+    for n, t in sc_.items():
+        assert float((sg[n] - t).abs().max()) <= 1e-4 * max(
+            1.0, float(t.abs().max())), n
+
+
+@pytest.mark.cuda
+def test_pillar_reader_trains_on_the_card_as_on_the_cpu():
+    """The pillar reader in train mode (two PFN layers, pad floor at 10) on
+    the card and on the CPU from the same weights, on a scene with
+    duplicated points (exact ties in the pillar max) and layer-0 channels
+    that ReLU zeroes everywhere (ties at zero): canvas within 1e-5, running
+    statistics within 1e-6, each parameter's gradient of a random
+    projection of the canvas within 1e-4 of max(1, max |CPU|); and the
+    pillar max and the floor split tied gradients evenly on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from futuredet_torch.models import readers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    v = torch.tensor([[3.0], [3.0], [1.0], [5.0], [5.0], [5.0]],
+                     device="cuda", requires_grad=True)
+    seg = torch.tensor([0, 0, 0, 1, 1, 1], device="cuda")
+    out = readers._segment_max(v, seg, 2)
+    (out * torch.tensor([[3.0], [1.0]], device="cuda")).sum().backward()
+    assert torch.allclose(v.grad.cpu()[:, 0], torch.tensor(
+        [1.5, 1.5, 0.0, 1 / 3, 1 / 3, 1 / 3]), rtol=1e-7, atol=0)
+    a = torch.tensor([1.0, 2.0], device="cuda", requires_grad=True)
+    torch.maximum(a, torch.tensor([1.0, 1.0], device="cuda")).sum().backward()
+    assert a.grad.tolist() == [0.5, 1.0]
+
+    rng = np.random.default_rng(8)
+    B, P = 2, 4000
+    pts = np.zeros((B, P, 5), np.float32)
+    centres = rng.uniform(-7, 7, (8, 2))
+    pts[:, :800, :2] = centres[rng.integers(0, 8, (B, 800))] \
+        + rng.normal(0, 0.15, (B, 800, 2))
+    pts[:, 800:, :2] = rng.uniform(-9, 9, (B, P - 800, 2))
+    pts[..., 2] = rng.uniform(-3.5, 3.5, (B, P))
+    pts[..., 3:] = rng.uniform(0, 1, (B, P, 2))
+    pts[:, 3000:3300] = pts[:, :300]
+    valid = rng.random((B, P)) < 0.9
+    proj = torch.from_numpy(rng.normal(size=(B, 32, 32, 16))
+                            .astype(np.float32))
+    ref = readers.PillarFeatureNetDirect(
+        num_filters=(16, 16), voxel_size=(0.5, 0.5),
+        pc_range=(-8.0, -8.0, -3.0, 8.0, 8.0, 3.0), grid_hw=(32, 32),
+        pad_floor_cap=10)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for n, p in ref.named_parameters():
+            scale = 0.5 if n.endswith("linear.weight") else 0.2
+            p.copy_(torch.randn(p.shape, generator=g) * scale
+                    + (1.0 if n.endswith("norm.weight") else 0.0))
+        ref.pfn_layers[0].norm.bias[:3] = -50.0
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = readers.PillarFeatureNetDirect(
+            num_filters=(16, 16), voxel_size=(0.5, 0.5),
+            pc_range=(-8.0, -8.0, -3.0, 8.0, 8.0, 3.0), grid_hw=(32, 32),
+            pad_floor_cap=10)
+        m.load_state_dict(ref.state_dict())
+        m = m.to(dev).train()
+        canvas = m(torch.from_numpy(pts).to(dev),
+                   torch.from_numpy(valid).to(dev))
+        (canvas * proj.to(dev)).sum().backward()
+        got[dev] = (canvas.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in m.named_parameters()},
+                    {n: b.cpu() for n, b in m.named_buffers()
+                     if n.endswith(("running_mean", "running_var"))})
+    (cc, gc, sc_), (cg, gg, sg) = got["cpu"], got["cuda"]
+    assert float((cg - cc).abs().max()) <= 1e-5
+    for n, t in sc_.items():
+        assert float((sg[n] - t).abs().max()) <= 1e-6, n
+    for n, t in gc.items():
+        tol = 1e-4 * max(1.0, float(t.abs().max()))
+        assert float((gg[n] - t).abs().max()) <= tol, n
+    assert not gc["pfn_layers.0.norm.bias"][:3].any()

@@ -98,6 +98,24 @@ def test_pfn_direct_matches_flax(cap):
 
 
 def test_masked_bn_training_is_not_ported():
+    """MaskedBatchNorm and the pillar reader both train now
+    (tests/test_torch_train_sparse.py and tests/test_torch_train_pillars.py
+    hold them to the JAX package): a train-mode reader with the pad floor
+    updates each layer's running statistics once, the phantom rows adding
+    no update, and its canvas's gradient reaches every parameter."""
     bn = MaskedBatchNorm(4).train()
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(3, 4), torch.ones(3, dtype=torch.bool))
+    y = bn(torch.arange(12.0).reshape(3, 4), torch.ones(3, dtype=torch.bool))
+    assert y.shape == (3, 4) and int(bn.num_batches_tracked) == 1
+    rng = np.random.default_rng(3)
+    pts, valid = scene(rng)
+    reader = PillarFeatureNetDirect(num_filters=FILTERS, voxel_size=VOXEL,
+                                    pc_range=PC_RANGE, grid_hw=GRID,
+                                    pad_floor_cap=8).train()
+    out = reader(torch.from_numpy(pts), torch.from_numpy(valid))
+    out.square().sum().backward()
+    for layer in reader.pfn_layers:
+        assert int(layer.norm.num_batches_tracked) == 1
+        assert not torch.equal(layer.norm.running_mean,
+                               torch.zeros_like(layer.norm.running_mean))
+    for name, p in reader.named_parameters():
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
