@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, one JSON line each (several for some):
 
   1. device and build: card name and power limit, then the CUDA kernels of
-     futuredet_torch/csrc (K1 nms_kernel.cu, K2 gather_conv_kernel.cu) built
-     at once into build/torch_kernels/, with ptxas's lines for each; no K1
-     or K2 function may spill registers.
+     futuredet_torch/csrc (K1 nms_kernel.cu, K2 gather_conv_kernel.cu) and
+     the metric engine's host C++ matcher (host_accumulate.cpp, g++) built
+     at once into build/torch_kernels/, with ptxas's lines for each kernel;
+     no K1 or K2 function may spill registers.
 
   The pillar path, pp_forecast_n3dtf:
   2. main path: full width (150k points, 512x512 canvas, RPN (64,128,256) x
@@ -114,17 +115,50 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       CPU's float32 run against the reference, and the card's against it.
   16. times: as phase 13, without the sparse convs.
 
+  The evaluation path, through the CLIs a user runs (futuredet_torch.cli):
+  17. pp_forecast_n3dtf at full width: cli.train.main on one synthetic
+      scene (seed CLI_SEED, lidar clutter) for CLI_EPOCHS epochs of one
+      step, validating each epoch (--val_synthetic 1), then
+      cli.evaluate.main on that scene from its checkpoint with
+      --forecast_mode velocity_dense --cohort_analysis --extractBox. Counts
+      zeroed just before the evaluation and read just after: K1 exactly
+      once, K2 never. Every summary key present and finite; the same
+      detections scored per class (--eval_only) must give mAP(car) >
+      MAP_FLOOR (a scene the model overfit, not a measure of quality). The
+      metrics JSON and CSV go to build/chip_smoke/.
+  18. forecast_n3dtf at full width: cli.evaluate.main from phase 10's
+      trainer checkpoint on EVAL_SCENES synthetic scenes with --speed_test:
+      per scene K2 exactly 20 times and K1 once; the speed test's ms per
+      sample beside phase 9's ms per scene; the CLI's voxel-budget line
+      (the budget must not be reached); the host tail (linking and
+      records, then the metric engine) in ms per scene with the C++
+      matcher and with numpy, whose summaries agree within GOLDEN_ATOL.
+  19. double-flip TTA, both models (phase 17's and phase 10's checkpoints,
+      one scene): cli.evaluate.main with --tta map (per scene K1 once, K2
+      80 times on VoxelNet) and --tta box (K1 4 times, K2 80 times); the
+      same weights and scene through the port on the CPU: every flip's
+      heatmaps within 1e-3, detections matched timestep by timestep as in
+      phase 4 (map) and flip by flip (box); ms per scene.
+  20. the metric engine: evaluate_forecasts on tests/fixtures/
+      metrics_golden.{npz,json}, all 5 settings, with the built C++ matcher
+      and with numpy, each within GOLDEN_ATOL of the fixture; and the GT
+      of two scenes fed back as Detections on the card: mAP and mFAP >
+      ORACLE_FLOOR.
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
 from __future__ import annotations
 
 import json
+import logging
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -174,6 +208,34 @@ K1_OPS_PER_PAIR = 450
 # fp32 operations of the cull test that skips a far pair: two centre
 # differences, their squares and sum, the reach sum, its square, the compare
 K1_OPS_PER_CULL = 8
+# the evaluation phases (17-20): phase 17 trains pp_forecast_n3dtf through
+# the train CLI on one scene (seed CLI_SEED, B = 1, one step an epoch) for
+# CLI_EPOCHS steps, validating each epoch, then evaluates that scene. At
+# 250 steps (train loss 0.05) the model in eval mode kept no box above the
+# 0.1 threshold at any timestep (mAP 0), its BatchNorm running statistics
+# trailing the schedule (scripts/torch_probe_bn_lag.py); at 600, 12-13
+# boxes a timestep and mAP(car) 1.0 (an NVIDIA H100 80GB HBM3 at 700 W)
+CLI_EPOCHS, CLI_SEED = 600, 0
+MAP_FLOOR = 0.05          # phase 17: mAP(car) on the overfit scene
+EVAL_SCENES = 3           # phase 18's scenes
+TTA_SEED, TTA_REPS = 7, 10
+GOLDEN_ATOL = 2e-6        # the C++ matcher's fp32 against numpy's fp64
+ORACLE_FLOOR = 0.9        # GT fed back as detections: mAP and mFAP
+SUMMARY_KEYS = ("mean_dist_aps", "mean_dist_ars", "mean_dist_faps",
+                "mean_dist_fars", "mean_dist_aaps", "mean_dist_aars",
+                "mean_dist_faps_mr", "label_tp_errors")
+GOLDEN_SETTINGS = {
+    "plain": dict(tp_pct=0.6, cohort_analysis=False, topk=1),
+    "cohort": dict(tp_pct=0.6, cohort_analysis=True, topk=1),
+    "cohort_top5": dict(tp_pct=0.6, cohort_analysis=True, topk=5),
+    "static_only": dict(tp_pct=0.6, cohort_analysis=False, topk=1,
+                        static_only=True),
+    "oracle_top5": dict(tp_pct=0.6, cohort_analysis=False, topk=5,
+                        association_oracle=True),
+}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the metrics JSON and CSV the evaluate CLI writes in phases 17-19
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # the four K2 launches timed alone: index of the conv in the encoder's
 # order (stage 0: conv_input, 4 block convs; stages 1-3: down, 4 block
 # convs each)
@@ -181,7 +243,13 @@ K2_REPRESENTATIVE = {"s0_conv_input_5to16": 0, "s0_subm_16to16": 1,
                      "down1_16to32": 5, "s3_subm_128to128": 16}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -939,7 +1007,7 @@ def voxelnet_path(dev, card):
     return {"k2": {"launches": launches["k2"], "max_abs_err": k2_err,
                    **total,
                    "bound_by": "operations" if ops_share >= 0.5 else "bytes"},
-            "k1_launches": launches["k1"]}
+            "k1_launches": launches["k1"], "scene_ms": times}
 
 
 def state_equal(a, b) -> bool:
@@ -1024,11 +1092,12 @@ def train_batch(cfg, seed, device, n_clutter):
                       n_clutter=n_clutter, max_objs=500, clutter_mode=mode)
 
 
-def run_trainer(cfg, dev, clutter, hooks):
+def run_trainer(cfg, dev, clutter, hooks, work_dir=None):
     """futuredet_torch.train.trainer.train for TRAIN_STEPS steps (one epoch)
-    into a temporary work dir, then its checkpoint restored into a fresh
-    model and optimizer. Returns (state, the checkpoint's round trip, the
-    trainer's log lines, its seconds)."""
+    into `work_dir` (default: a temporary dir, removed after), then its
+    checkpoint restored into a fresh model and optimizer. Returns (state,
+    the checkpoint's round trip, the trainer's log lines, its seconds)."""
+    import contextlib
     import dataclasses
     import itertools
     import tempfile
@@ -1041,7 +1110,8 @@ def run_trainer(cfg, dev, clutter, hooks):
     cfg_run = cfg.replace(train=dataclasses.replace(
         cfg.train, total_epochs=1, log_interval=TRAIN_STEPS))
     logs = []
-    with tempfile.TemporaryDirectory() as work:
+    with (contextlib.nullcontext(work_dir) if work_dir
+          else tempfile.TemporaryDirectory()) as work:
         stream = (train_batch(cfg, TRAIN_SEED + i, "cpu", clutter)
                   for i in itertools.count())
         t0 = time.perf_counter()
@@ -1234,8 +1304,9 @@ def step_times(cfg, model, opt, batch, count):
         peak_mib
 
 
-def train_path(dev, card):
-    """Phases 10-13. Returns K2's numbers of this path."""
+def train_path(dev, card, work_dir=None):
+    """Phases 10-13, the trainer's checkpoint into `work_dir` (default: a
+    temporary dir). Returns K2's numbers of this path."""
     from futuredet_torch.config import get_config
     from futuredet_torch.models import middle as middle_mod
     from futuredet_torch.ops import pallas_gather, pallas_nms
@@ -1292,7 +1363,7 @@ def train_path(dev, card):
     middle_mod.subm_conv_apply = recording_apply
     try:
         state, ckpt, logs, train_s = run_trainer(cfg, dev, TRAIN_CLUTTER,
-                                                 [Count()])
+                                                 [Count()], work_dir)
     finally:
         sc_mod.subm_conv_dx = dx_fn
         middle_mod.subm_conv_apply = apply_fn
@@ -1475,6 +1546,428 @@ def pillar_train_path(dev, card):
             "k2": sum(r["k2"] for r in per_step)}
 
 
+class LogCapture(logging.Handler):
+    """The messages futuredet_torch's loggers (the trainer's, the CLIs')
+    give while the capture is entered, at INFO and above."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+        self.logger = logging.getLogger("futuredet_torch")
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.old = self.logger.level
+        self.logger.addHandler(self)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.old)
+
+
+def run_evaluate(argv):
+    """futuredet_torch.cli.evaluate.main(argv), the K1 and K2 launches of
+    each inference call of it counted (the counts zeroed just before, read
+    just after). Returns (summary, [(K1, K2) per call], (K1, K2) in all,
+    the log, seconds)."""
+    from futuredet_torch.cli import evaluate
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    make, per_call = evaluate.make_infer, []
+
+    def counted_make(*a, **kw):
+        infer = make(*a, **kw)
+
+        def counted(points, valid):
+            b1, b2 = k1.launches, k2.launches
+            out = infer(points, valid)
+            per_call.append((k1.launches - b1, k2.launches - b2))
+            return out
+        return counted
+
+    evaluate.make_infer = counted_make
+    try:
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        with LogCapture() as logs:
+            summary = evaluate.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        total = (k1.launches, k2.launches)
+    finally:
+        evaluate.make_infer = make
+    return summary, per_call, total, logs.lines, secs
+
+
+def summary_leaves(summary):
+    """(key path, value) of every number in a metrics summary."""
+    for k, v in summary.items():
+        if isinstance(v, dict):
+            for kk, vv in summary_leaves(v):
+                yield f"{k}/{kk}", vv
+        else:
+            yield k, v
+
+
+def check_summary(summary, what):
+    check(set(summary) == set(SUMMARY_KEYS),
+          f"{what}: summary keys {sorted(summary)}")
+    bad = [k for k, v in summary_leaves(summary) if not math.isfinite(v)]
+    check(not bad, f"{what}: summary values not finite: {bad}")
+
+
+def headline(summary, cls):
+    e = summary["label_tp_errors"][cls]
+    return {"mAP": summary["mean_dist_aps"][cls],
+            "mFAP": summary["mean_dist_faps"][cls],
+            "mAAP": summary["mean_dist_aaps"][cls],
+            "ADE": e["avg_disp_err"], "FDE": e["final_disp_err"],
+            "MR": e["miss_rate"]}
+
+
+def metrics_path(out_name):
+    return os.path.join(OUT_DIR, out_name + ".json")
+
+
+def eval_args(dev, model, out_name, *extra):
+    """The evaluate CLI's arguments of phases 17-19: the car forecasts
+    linked by velocity_dense, the metrics JSON and CSV under OUT_DIR."""
+    return ["--model", model, "--device", str(dev), "--forecast_mode",
+            "velocity_dense", "--out", metrics_path(out_name), *extra]
+
+
+def cfg_post(name):
+    from futuredet_torch.config import get_config
+    return get_config(name).test.nms.post_max_size
+
+
+def cli_pillar_path(dev, card, work):
+    """Phase 17. Returns the launches of the evaluation and the train
+    CLI's work dir."""
+    import pickle
+
+    from futuredet_torch.cli import train
+    from futuredet_torch.config import get_config
+
+    train_dir = os.path.join(work, "pp_cli")
+    # each validation timed alone, synchronised
+    make_val, val_ms = train.make_val_fn, []
+
+    def timed_make_val(*a, **kw):
+        val_fn = make_val(*a, **kw)
+
+        def timed(state):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = val_fn(state)
+            torch.cuda.synchronize()
+            val_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+
+    train.make_val_fn = timed_make_val
+    t0 = time.perf_counter()
+    with LogCapture() as logs:
+        state = train.main([
+            "--model", NAME, "--device", str(dev), "--synthetic", "1",
+            "--seed", str(CLI_SEED),
+            "--epochs", str(CLI_EPOCHS), "--checkpoint_interval",
+            str(CLI_EPOCHS), "--val_synthetic", "1", "--work_dir",
+            train_dir])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train.make_val_fn = make_val
+    check(next(state.model.parameters()).device.type == dev.type,
+          f"the train CLI ran on {next(state.model.parameters()).device}")
+    steps = state.step
+    del state
+    vals = [ln for ln in logs.lines if ln.startswith("val @ epoch")]
+    check(steps == CLI_EPOCHS and len(vals) == CLI_EPOCHS,
+          f"train CLI: {steps} steps, {len(vals)} validations")
+    pkl = os.path.join(OUT_DIR, f"detections_{NAME}.pkl")
+    summary, per_call, total, elog, eval_s = run_evaluate(eval_args(
+        dev, NAME, f"metrics_{NAME}", "--synthetic", "1", "--seed",
+        str(CLI_SEED), "--checkpoint_dir", train_dir, "--cohort_analysis",
+        "--extractBox", "--predictions_path", pkl))
+    check(per_call == [(1, 0)] and total == (1, 0),
+          f"{NAME} eval: (K1, K2) launches {per_call}, {total} in all")
+    check(any(f"restored checkpoint step {CLI_EPOCHS}" in ln for ln in elog),
+          "the evaluate CLI did not restore the train CLI's checkpoint")
+    check_summary(summary, f"{NAME} eval")
+    with open(pkl, "rb") as f:
+        saved = pickle.load(f)
+    per_t = saved[0][0].valid.reshape(-1, cfg_post(NAME)).sum(-1).tolist()
+    tails = host_tail_ms(get_config(NAME), saved)
+    # the same detections scored per class, without cohorts
+    plain, _, _, _, _ = run_evaluate(eval_args(
+        dev, NAME, f"metrics_{NAME}_car", "--eval_only", "--predictions_path",
+        pkl))
+    check_summary(plain, f"{NAME} eval, car")
+    car = headline(plain, "car")
+    emit({"phase": "cli_train_evaluate", "model": NAME, "card": card,
+          "scene": f"synthetic seed {CLI_SEED}, lidar clutter",
+          "train_steps": steps, "train_s": round(train_s, 3),
+          "val_ms_median": statistics.median(val_ms),
+          "val_ms_sum": sum(val_ms),
+          "train_log": [ln for ln in logs.lines if ln.startswith("step")],
+          "val_first_last": [vals[0], vals[-1]],
+          "eval_s": round(eval_s, 3), "launches_per_scene": per_call,
+          "detections_per_t": per_t, "host_tail": tails, "car": car,
+          "cohorts": {c: headline(summary, c) for c in
+                      summary["mean_dist_aps"]},
+          "metrics_json": os.path.relpath(metrics_path(f"metrics_{NAME}"),
+                                          ROOT),
+          "metrics_csv": os.path.relpath(metrics_path(f"metrics_{NAME}")
+                                         [:-5] + ".csv", ROOT),
+          "note": "an overfit training scene, not a measure of model "
+                  "quality"})
+    check(car["mAP"] > MAP_FLOOR, f"{NAME}: mAP(car) {car['mAP']} on the "
+          f"scene it overfit (at most {MAP_FLOOR})")
+    return {"k1": total[0], "k2": total[1], "checkpoint_dir": train_dir}
+
+
+def host_tail(cfg, saved, native):
+    """The evaluate CLI's host tail on saved detections: linking and
+    records, then the metric engine. Returns (summary, link s, metrics s)."""
+    from futuredet_torch.eval.evaluator import (detections_to_predictions,
+                                                gt_records_from_arrays)
+    from futuredet_torch.eval.metrics import evaluate_forecasts
+    cls = cfg.data.class_names[0]
+    t0 = time.perf_counter()
+    preds, gts = [], []
+    for det, gt, tokens in saved:
+        p = detections_to_predictions(cfg, det, tokens,
+                                      forecast_mode="velocity_dense",
+                                      classname=cls)
+        for x in p:
+            x.yaw = float(-x.yaw - np.pi / 2)
+        preds += p
+        gts += gt_records_from_arrays(gt["boxes"], gt["valid"], gt["traj"],
+                                      tokens, cls)
+    t1 = time.perf_counter()
+    res = evaluate_forecasts(preds, gts, [cls], cohort_analysis=True,
+                             native=native)
+    return res.summary(), t1 - t0, time.perf_counter() - t1
+
+
+def host_tail_ms(cfg, saved):
+    """The host tail of saved detections in ms per scene (median of 3), with
+    the C++ matcher and with numpy, whose summaries must agree within
+    GOLDEN_ATOL."""
+    tails, n = {}, sum(len(tokens) for _, _, tokens in saved)
+    for name, native in (("native", True), ("numpy", False)):
+        runs = [host_tail(cfg, saved, native) for _ in range(3)]
+        tails[name] = {
+            "link_ms_per_scene": statistics.median(r[1] for r in runs)
+            * 1e3 / n,
+            "metrics_ms_per_scene": statistics.median(r[2] for r in runs)
+            * 1e3 / n, "summary": runs[0][0]}
+    a, b = (dict(summary_leaves(tails[k].pop("summary")))
+            for k in ("native", "numpy"))
+    tails["native_vs_numpy_max_abs_err"] = max(abs(a[k] - b[k]) for k in a)
+    check(tails["native_vs_numpy_max_abs_err"] <= GOLDEN_ATOL,
+          f"native vs numpy matcher {tails}")
+    return tails
+
+
+def cli_voxelnet_path(dev, card, ckpt_dir, scene_ms):
+    """Phase 18. Returns the launches of the evaluation."""
+    import pickle
+
+    from futuredet_torch.config import get_config
+
+    pkl = os.path.join(OUT_DIR, f"detections_{VOX_NAME}.pkl")
+    summary, per_call, total, logs, eval_s = run_evaluate(eval_args(
+        dev, VOX_NAME, f"metrics_{VOX_NAME}", "--synthetic", str(EVAL_SCENES),
+        "--checkpoint_dir", ckpt_dir, "--cohort_analysis", "--speed_test",
+        "--extractBox", "--predictions_path", pkl))
+    check(per_call == [(1, 20)] * EVAL_SCENES
+          and total == (EVAL_SCENES, 20 * EVAL_SCENES),
+          f"{VOX_NAME} eval: (K1, K2) launches {per_call}, {total} in all")
+    check(any(f"restored checkpoint step {TRAIN_STEPS}" in ln
+              for ln in logs), "the evaluate CLI did not restore phase "
+          "10's checkpoint")
+    check_summary(summary, f"{VOX_NAME} eval")
+    speed = [ln for ln in logs if ln.startswith("speed test:")]
+    budget = [ln for ln in logs if ln.startswith("voxel budget")]
+    check(len(speed) == 1 and len(budget) == 1, f"{speed} {budget}")
+    check("(not reached)" in budget[0], budget[0])
+    with open(pkl, "rb") as f:
+        saved = pickle.load(f)
+    tails = host_tail_ms(get_config(VOX_NAME), saved)
+    emit({"phase": "cli_evaluate", "model": VOX_NAME, "card": card,
+          "scenes": EVAL_SCENES, "checkpoint": "phase 10's trainer, step "
+          f"{TRAIN_STEPS}", "launches_per_scene": per_call,
+          "eval_s": round(eval_s, 3), "speed_test": speed[0],
+          "phase_9_ms_per_scene": scene_ms, "voxel_budget": budget[0],
+          "detections_per_scene": [int(d.valid.sum()) for d, _, _ in saved],
+          "host_tail": tails,
+          "cohorts": {c: headline(summary, c) for c in
+                      summary["mean_dist_aps"]}})
+    return {"k1": total[0], "k2": total[1]}
+
+
+def tta_path(dev, card, ckpts):
+    """Phase 19. Returns the launches of each model's --tta map and box."""
+    from futuredet_torch.cli import evaluate
+    from futuredet_torch.config import get_config
+    from futuredet_torch.eval.decode import Detections
+    from futuredet_torch.eval.tta import (FLIPS, infer_double_flip,
+                                          infer_double_flip_map)
+
+    out = {}
+    for name, ckpt in ckpts.items():
+        cfg = get_config(name)
+        per_flip_k2 = 20 if name == VOX_NAME else 0
+        for mode, k1_want in (("map", 1), ("box", len(FLIPS))):
+            summary, per_call, total, _, _ = run_evaluate(eval_args(
+                dev, name, f"metrics_{name}_tta_{mode}", "--synthetic", "1",
+                "--seed", str(TTA_SEED), "--checkpoint_dir", ckpt, "--tta",
+                mode))
+            want = (k1_want, per_flip_k2 * len(FLIPS))
+            check(per_call == [want] and total == want,
+                  f"{name} --tta {mode}: (K1, K2) launches {per_call}")
+            check_summary(summary, f"{name} --tta {mode}")
+            out[f"{name}_tta_{mode}"] = {"k1": total[0], "k2": total[1]}
+        # the same weights and scene through the port on the CPU
+        args = evaluate.parse_args(["--model", name, "--checkpoint_dir",
+                                    ckpt])
+        batch = evaluate.synthetic_batches(cfg, 1, 1, TTA_SEED)[0]
+        runs = {}
+        for where_name, where in (("card", dev),
+                                  ("cpu", torch.device("cpu"))):
+            model = evaluate.restore_model(cfg, args, where)
+            pts = batch["points"].to(where)
+            valid = batch["points_valid"].to(where)
+            rec = []
+
+            def forward(p, v, model=model, rec=rec):
+                rec.append(model(p, v))
+                return rec[-1]
+
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                det_map = infer_double_flip_map(cfg, forward, pts, valid)
+                replay = iter(list(rec))      # the four flips, in order
+                det_box = infer_double_flip(cfg, lambda p, v: next(replay),
+                                            pts, valid)
+            torch.cuda.synchronize()
+            runs[where_name] = (model, pts, valid, rec, det_map, det_box,
+                                time.perf_counter() - t0)
+        (gm, gp, gv, grec, gmap, gbox, _), cpu = runs["card"], runs["cpu"]
+        hm_err = max(float((torch.sigmoid(g["hm"]).cpu()
+                            - torch.sigmoid(c["hm"])).abs().max())
+                     for gf, cf in zip(grec, cpu[3]) for g, c in zip(gf, cf))
+        check(hm_err <= HM_ATOL, f"{name} flipped heatmaps card vs CPU "
+              f"{hm_err}")
+        matched = {"map": check_detections_match(cfg, gmap, cpu[4], hm_err)}
+        n = gmap.valid.shape[1]
+        for i in range(len(FLIPS)):
+            # one flip of the box ensemble, its scores back to the flip's
+            part = [Detections(*(x[:, i * n:(i + 1) * n] for x in d))
+                    for d in (gbox, cpu[5])]
+            part = [d._replace(scores=d.scores * len(FLIPS)) for d in part]
+            matched[f"box_flip_{i}"] = check_detections_match(cfg, *part,
+                                                              hm_err)
+        ms = {}
+        for mode in ("map", "box"):
+            infer = evaluate.make_infer(cfg, gm, mode)
+            ms[mode] = time_host(lambda: infer(gp, gv), reps=TTA_REPS)
+        emit({"phase": "tta", "model": name, "card": card,
+              "scene": f"synthetic seed {TTA_SEED}",
+              "launches_per_scene": {m: out[f"{name}_tta_{m}"]
+                                     for m in ("map", "box")},
+              "cpu_s": round(cpu[6], 3), "hm_max_abs_err": hm_err,
+              "hm_atol": HM_ATOL,
+              "detections_card_cpu_let_off": matched,
+              "ms_per_scene": ms, "warmup": WARMUP, "reps": TTA_REPS})
+    return out
+
+
+def golden_records():
+    from futuredet_torch.eval.metrics import GTRecord, PredRecord
+    z = np.load(os.path.join(ROOT, "tests", "fixtures",
+                             "metrics_golden.npz"))
+    preds = [PredRecord(
+        sample=str(z["pred_sample"][i]), centers=z["pred_centers"][i],
+        size=z["pred_size"][i], yaw=float(z["pred_yaw"][i]),
+        vel=z["pred_vel"][i], det_score=float(z["pred_det_score"][i]),
+        forecast_score=float(z["pred_forecast_score"][i]),
+        forecast_id=int(z["pred_forecast_id"][i]),
+        classname=str(z["pred_classname"][i]), attr=str(z["pred_attr"][i]))
+        for i in range(len(z["pred_sample"]))]
+    gts = [GTRecord(
+        sample=str(z["gt_sample"][i]), centers=z["gt_centers"][i],
+        size=z["gt_size"][i], yaw=float(z["gt_yaw"][i]), vel=z["gt_vel"][i],
+        classname=str(z["gt_classname"][i]), cohort=str(z["gt_cohort"][i]),
+        attr=str(z["gt_attr"][i]))
+        for i in range(len(z["gt_sample"]))]
+    return preds, gts
+
+
+def metrics_engine_path(dev, card):
+    """Phase 20."""
+    from futuredet_torch.config import get_config
+    from futuredet_torch.data.synthetic import make_batch
+    from futuredet_torch.eval.decode import Detections
+    from futuredet_torch.eval.evaluator import evaluate_detections
+    from futuredet_torch.eval.metrics import evaluate_forecasts
+
+    with open(os.path.join(ROOT, "tests", "fixtures",
+                           "metrics_golden.json")) as f:
+        golden = json.load(f)
+    preds, gts = golden_records()
+    settings = {}
+    for setting, kw in GOLDEN_SETTINGS.items():
+        want = dict(summary_leaves(golden[setting]))
+        for name, native in (("native", True), ("numpy", False)):
+            t0 = time.perf_counter()
+            res = evaluate_forecasts(preds, gts, ["car", "pedestrian"],
+                                     horizon_seconds=3.0, native=native,
+                                     **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            got = dict(summary_leaves(res.summary()))
+            check(got.keys() == want.keys(), f"golden {setting} keys")
+            err = max(abs(got[k] - want[k]) for k in want)
+            settings[f"{setting}_{name}"] = {"max_abs_err": err, "ms": ms}
+            check(err <= GOLDEN_ATOL, f"golden {setting} on the {name} "
+                  f"matcher: {err}")
+
+    # the GT fed back as Detections on the card (tests/test_e2e_eval.py)
+    cfg = get_config(NAME)
+    batch = make_batch(cfg, 2, seed=5, n_objects=5, n_clutter=100,
+                       max_objs=16)
+    gt = batch["gt"]
+    T, post = cfg.model.head.timesteps, cfg.test.nms.post_max_size
+    boxes = np.zeros((2, T * post, 9), np.float32)
+    scores = np.zeros((2, T * post), np.float32)
+    labels = np.zeros((2, T * post), np.int64)
+    valid = np.zeros((2, T * post), bool)
+    for b in range(2):
+        i = 0
+        for t in range(T):
+            for k in np.nonzero(gt["valid"][b][t])[0]:
+                g = gt["boxes"][b][t, k]
+                boxes[b, i] = [*g[:8], g[10]]
+                scores[b, i], labels[b, i], valid[b, i] = 0.9, t, True
+                i += 1
+    det = Detections(*(torch.from_numpy(a).to(dev)
+                       for a in (boxes, scores, labels, valid)))
+    res = evaluate_detections(cfg, det, gt, ["s0", "s1"],
+                              forecast_mode="velocity_dense")
+    oracle = headline(res.summary(), "car")
+    emit({"phase": "metrics_engine", "card": card,
+          "golden_atol": GOLDEN_ATOL, "golden": settings,
+          "oracle_gt_as_detections": oracle,
+          "oracle_floor": ORACLE_FLOOR})
+    check(oracle["mAP"] > ORACLE_FLOOR and oracle["mFAP"] > ORACLE_FLOOR,
+          f"the GT-as-predictions oracle: {oracle}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1501,8 +1994,8 @@ def main() -> int:
                     if "registers" in ln or "Compiling" in ln
                     or "spill" in ln]
              for name in secs}
-    check(set(secs) >= {"nms_kernel.cu", "gather_conv_kernel.cu"},
-          f"built {sorted(secs)}")
+    check(set(secs) >= {"nms_kernel.cu", "gather_conv_kernel.cu",
+                        "host_accumulate.cpp"}, f"built {sorted(secs)}")
     spills = [ln for name in ("nms_kernel.cu", "gather_conv_kernel.cu")
               for ln in ptxas[name] if re.search(r"[1-9]\d* bytes spill", ln)]
     check(not spills, f"K1 or K2 spills registers: {spills}")
@@ -1512,22 +2005,33 @@ def main() -> int:
           "build_s": round(build_s, 3), "per_source_s": secs,
           "ptxas": ptxas, "tf32": False})
 
-    k1 = pillar_path(dev, card)
-    vox = voxelnet_path(dev, card)
-    train = train_path(dev, card)
-    pillar_train = pillar_train_path(dev, card)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory() as work:
+        k1 = pillar_path(dev, card)
+        vox = voxelnet_path(dev, card)
+        vox_ckpt = os.path.join(work, "voxelnet_train")
+        train = train_path(dev, card, vox_ckpt)
+        pillar_train = pillar_train_path(dev, card)
+        pp_eval = cli_pillar_path(dev, card, work)
+        vox_eval = cli_voxelnet_path(dev, card, vox_ckpt, vox["scene_ms"])
+        tta = tta_path(dev, card, {NAME: pp_eval.pop("checkpoint_dir"),
+                                   VOX_NAME: vox_ckpt})
+    metrics_engine_path(dev, card)
 
+    evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta}
     print(card, flush=True)
     k2 = vox["k2"]
     emit({"kernels": [{
         "name": "K1 rotated NMS survivor mask",
         "route": "cuda", "source": "futuredet_torch/csrc/nms_kernel.cu",
         "replaces": "futuredet_tpu/ops/pallas_nms.py:82",
-        "launches": k1["launches"] + vox["k1_launches"],
+        "launches": k1["launches"] + vox["k1_launches"]
+        + sum(e["k1"] for e in evals.values()),
         "launches_by_path": {NAME: k1["launches"],
                              VOX_NAME: vox["k1_launches"],
                              VOX_NAME + "_train": train["k1_launches"],
-                             NAME + "_train": pillar_train["k1"]},
+                             NAME + "_train": pillar_train["k1"],
+                             **{p: e["k1"] for p, e in evals.items()}},
         "matched": True, "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1537,11 +2041,13 @@ def main() -> int:
         "route": "cuda",
         "source": "futuredet_torch/csrc/gather_conv_kernel.cu",
         "replaces": "futuredet_tpu/ops/pallas_gather.py:49",
-        "launches": k1["k2_launches"] + k2["launches"] + train["launches"],
+        "launches": k1["k2_launches"] + k2["launches"] + train["launches"]
+        + sum(e["k2"] for e in evals.values()),
         "launches_by_path": {NAME: k1["k2_launches"],
                              VOX_NAME: k2["launches"],
                              VOX_NAME + "_train": train["launches"],
-                             NAME + "_train": pillar_train["k2"]},
+                             NAME + "_train": pillar_train["k2"],
+                             **{p: e["k2"] for p, e in evals.items()}},
         "train_launches_per_step": {"forward": train["forward_per_step"],
                                     "dx": train["dx_per_step"]},
         "matched": True,

@@ -311,15 +311,21 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
     keywords) stacked into tensors on `device` (default the CPU):
     {"points" (B, P, 5) f32, "points_valid" (B, P) bool, "targets_raw":
     {"gt_boxes" (B, T, M, 12), "gt_classes" (B, T, M), "gt_valid"
-    (B, T, M), "traj_classes" (B, M)}}."""
+    (B, T, M), "traj_classes" (B, M)}}, and the same GT as host numpy for
+    the evaluator under "gt": {"boxes", "classes", "valid", "traj"}, as the
+    JAX package's `make_batch` gives it."""
     scenes = [make_scene(cfg, seed=seed + i, **kw) for i in range(batch_size)]
 
+    def host(field):
+        return np.stack([getattr(s, field) for s in scenes])
+
     def stack(field):
-        return torch.from_numpy(np.stack([getattr(s, field)
-                                          for s in scenes])).to(device)
+        return torch.from_numpy(host(field)).to(device)
 
     return {"points": stack("points"), "points_valid": stack("points_valid"),
             "targets_raw": {"gt_boxes": stack("gt_boxes"),
                             "gt_classes": stack("gt_classes"),
                             "gt_valid": stack("gt_valid"),
-                            "traj_classes": stack("traj_classes")}}
+                            "traj_classes": stack("traj_classes")},
+            "gt": {"boxes": host("gt_boxes"), "classes": host("gt_classes"),
+                   "valid": host("gt_valid"), "traj": host("traj_classes")}}

@@ -1,11 +1,13 @@
-"""Builds and loads the port's CUDA kernels.
+"""Builds and loads the port's CUDA kernels and its host C++ library.
 
-Each `futuredet_torch/csrc/*.cu` is compiled by `nvcc` into its own shared
-library with a plain C interface, named after the hash of its source and
-flags, under `build/torch_kernels/` at the root of the checkout, and loaded
-with `ctypes`. A source is built at its first use and again when its hash
-changes; `build_all` starts one `nvcc` per source at once. Nothing here runs
-at import, so importing the package never needs `nvcc`.
+Each `futuredet_torch/csrc/*.cu` is compiled by `nvcc`, and each
+`futuredet_torch/csrc/*.cpp` (host code: the metric engine's matcher) by
+`g++ -O3 -shared -fPIC`, into its own shared library with a plain C
+interface, named after the hash of its source and flags, under
+`build/torch_kernels/` at the root of the checkout, and loaded with
+`ctypes`. A source is built at its first use and again when its hash
+changes; `build_all` starts one compiler per source at once. Nothing here
+runs at import, so importing the package never needs a compiler.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # nms_kernel.cu must round as its plain PyTorch version: no contraction
 EXTRA_FLAGS = {"nms_kernel.cu": ["-fmad=false"]}
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-Wall"]
+SUFFIXES = (".cu", ".cpp")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,7 +44,22 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _cxx() -> str:
+    for cxx in (os.environ.get("CXX"), "g++", "c++"):
+        found = cxx and shutil.which(cxx)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (g++) found: the host library "
+                       "csrc/*.cpp builds only where one is installed")
+
+
+def _compiler(name: str) -> str:
+    return _nvcc() if name.endswith(".cu") else _cxx()
+
+
 def _flags(name: str) -> List[str]:
+    if name.endswith(".cpp"):
+        return CXX_FLAGS
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
@@ -51,23 +70,26 @@ def _target(name: str) -> Path:
 
 
 def build_all(names: List[str] = None) -> Dict[str, float]:
-    """Compile every named source (default: all of csrc/*.cu) whose library
-    is missing, one nvcc process each, all at once. Returns the seconds each
-    build took (0 for a library already built); the compiler's output
-    (ptxas register and shared-memory lines) goes to `<library>.log`."""
-    names = names or sorted(p.name for p in CSRC.glob("*.cu"))
+    """Compile every named source (default: all of csrc/*.cu and *.cpp)
+    whose library is missing, one compiler process each, all at once.
+    Returns the seconds each build took (0 for a library already built);
+    the compiler's output (for nvcc, ptxas register and shared-memory
+    lines) goes to `<library>.log`."""
+    names = names or sorted(p.name for p in CSRC.iterdir()
+                            if p.suffix in SUFFIXES)
     secs = {n: 0.0 for n in names if _target(n).exists()}
     todo = [n for n in names if n not in secs]
     if not todo:
         return secs
-    nvcc = _nvcc()
+    compilers = {n: _compiler(n) for n in todo}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in todo:
         out = _target(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / name)]
+        cmd = [compilers[name], *_flags(name), "-o", str(tmp),
+               str(CSRC / name)]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
                        tmp, out, log, time.perf_counter())
@@ -81,7 +103,7 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
             continue
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
     if failed:
-        raise RuntimeError(f"nvcc failed for {', '.join(failed)}")
+        raise RuntimeError(f"the build failed for {', '.join(failed)}")
     return secs
 
 

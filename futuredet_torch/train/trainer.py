@@ -6,8 +6,10 @@ reference's torchie Trainer and hooks,
 `det3d/torchie/trainer/trainer.py:155-587`): a lean loop over
 `train_step`, a log line every `cfg.train.log_interval` steps, a checkpoint
 every `checkpoint_interval_epochs` epochs, `resume=True` to continue from
-the latest one, and SIGTERM / SIGUSR1 (cluster preemption notices) turned
-into a checkpoint at the next step boundary and a clean return.
+the latest one, SIGTERM / SIGUSR1 (cluster preemption notices) turned
+into a checkpoint at the next step boundary and a clean return, and
+`val_fn(state)` at each epoch's end (the reference's Trainer.val phase),
+its dict logged.
 
 The sparse middle never drops a site; the only budget is the voxelizer's
 `max_voxels_train` per sample, and a sample that reaches it draws a
@@ -90,13 +92,16 @@ def _to_device(batch: Dict, dev: torch.device) -> Dict:
 def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
           steps_per_epoch: int, work_dir: Optional[str] = None,
           resume: bool = False, hooks: Optional[List[Hook]] = None,
+          val_fn: Optional[Callable[[TrainState], Dict]] = None,
           device=None, log_fn: Callable[[str], None] = log.info
           ) -> TrainState:
     """Run the schedule of `cfg.train.total_epochs` epochs over `batches`
     (an iterator of {"points", "points_valid", "targets_raw"} batches,
     e.g. `data/synthetic.py::make_batch`) on `device` (default: the card),
-    from `build_detector(cfg, seed=cfg.train.seed)`. Returns the state
-    after the last step taken."""
+    from `build_detector(cfg, seed=cfg.train.seed)`. At each epoch's end
+    `val_fn(state)`, if given, runs with the model in eval mode and no
+    autograd, and its dict is logged. Returns the state after the last step
+    taken."""
     total_steps = steps_per_epoch * cfg.train.total_epochs
     dev = resolve_device(device)
     model = build_detector(cfg, device=dev, seed=cfg.train.seed).train()
@@ -122,7 +127,8 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
             pass
     try:
         _run_loop(cfg, state, iter(batches), dev, total_steps,
-                  steps_per_epoch, ckpt, hooks or [], preempted, log_fn)
+                  steps_per_epoch, ckpt, hooks or [], val_fn, preempted,
+                  log_fn)
     finally:
         # a leaked handler would make the process ignore later SIGTERMs
         for sig, old in olds.items():
@@ -132,8 +138,17 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
     return state
 
 
+def _validate(state: TrainState, val_fn) -> Dict:
+    state.model.eval()
+    try:
+        with torch.no_grad():
+            return val_fn(state)
+    finally:
+        state.model.train()
+
+
 def _run_loop(cfg, state, it, dev, total_steps, steps_per_epoch, ckpt,
-              hooks, preempted, log_fn):
+              hooks, val_fn, preempted, log_fn):
     buf = MetricBuffer()
     budget = cfg.voxel.max_voxels_train
     warned = False
@@ -176,6 +191,8 @@ def _run_loop(cfg, state, it, dev, total_steps, steps_per_epoch, ckpt,
             t_data = t_step = 0.0
         if (step + 1) % steps_per_epoch == 0:
             epoch = (step + 1) // steps_per_epoch
+            if val_fn is not None:
+                log_fn(f"val @ epoch {epoch}: {_validate(state, val_fn)}")
             for h in hooks:
                 h.after_epoch(epoch, state)
             if ckpt and epoch % cfg.train.checkpoint_interval_epochs == 0:

@@ -325,3 +325,69 @@ def test_pillar_train_phases_rehearse_on_the_cpu(train_phases_on_the_cpu):
     assert overfit["checkpoint"]["model_identical"]
     assert set(lines[-1]["train_step_split_ms"]) == {
         "targets", "forward_loss", "backward", "optimizer"}
+
+
+@pytest.fixture
+def eval_phases_on_the_cpu(train_phases_on_the_cpu, monkeypatch, tmp_path):
+    """chip_smoke's evaluation phases on the CPU, on top of the training
+    rehearsal's small configs and counting K2: K1 as a counting plain
+    version too, the CLI's outputs under tmp_path, few train steps and no
+    timing runs."""
+    from futuredet_torch.ops import nms, pallas_nms
+
+    def counting_k1(boxes, valid, thr):
+        counting_k1.launches += 1
+        return pallas_nms.nms_alive_plain(boxes, valid, thr)
+    counting_k1.launches = 0
+    monkeypatch.setattr(pallas_nms, "rotate_nms_alive", counting_k1)
+    monkeypatch.setattr(nms, "rotate_nms_alive", counting_k1)
+    monkeypatch.setattr(cs, "OUT_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(cs, "CLI_EPOCHS", 40)
+    # the tiny model does not overfit its scene in the rehearsal's steps
+    # (its future timesteps keep no box, so velocity_dense links none):
+    # the floor holds the full-width model on the card
+    monkeypatch.setattr(cs, "MAP_FLOOR", -1.0)
+    monkeypatch.setattr(cs, "TTA_REPS", 1)
+    monkeypatch.setattr(cs, "time_host", lambda fn, warmup=0, reps=0:
+                        (fn(), 0.0)[1])
+    os.makedirs(cs.OUT_DIR)
+    return train_phases_on_the_cpu
+
+
+def test_eval_phases_rehearse_on_the_cpu(eval_phases_on_the_cpu, tmp_path):
+    lines = eval_phases_on_the_cpu
+    from futuredet_torch import config
+    dev = torch.device("cpu")
+    vox_ckpt = str(tmp_path / "vox")
+    cs.run_trainer(config.get_config(cs.VOX_NAME), dev, cs.TRAIN_CLUTTER,
+                   [], vox_ckpt)
+    pp = cs.cli_pillar_path(dev, "cpu", str(tmp_path))
+    assert (pp["k1"], pp["k2"]) == (1, 0)
+    vox = cs.cli_voxelnet_path(dev, "cpu", vox_ckpt, {"scene": 0.0})
+    assert (vox["k1"], vox["k2"]) == (cs.EVAL_SCENES, 20 * cs.EVAL_SCENES)
+    tta = cs.tta_path(dev, "cpu", {cs.NAME: pp["checkpoint_dir"],
+                                   cs.VOX_NAME: vox_ckpt})
+    assert tta == {f"{cs.NAME}_tta_map": {"k1": 1, "k2": 0},
+                   f"{cs.NAME}_tta_box": {"k1": 4, "k2": 0},
+                   f"{cs.VOX_NAME}_tta_map": {"k1": 1, "k2": 80},
+                   f"{cs.VOX_NAME}_tta_box": {"k1": 4, "k2": 80}}
+    cs.metrics_engine_path(dev, "cpu")
+    assert [ln["phase"] for ln in lines] == [
+        "cli_train_evaluate", "cli_evaluate", "tta", "tta",
+        "metrics_engine"]
+    first = lines[0]
+    assert first["train_steps"] == cs.CLI_EPOCHS
+    assert first["car"]["mAP"] > cs.MAP_FLOOR
+    assert os.path.exists(os.path.join(cs.ROOT, first["metrics_csv"]))
+    tails = lines[1]["host_tail"]
+    assert set(tails) == {"native", "numpy", "native_vs_numpy_max_abs_err"}
+    assert tails["native_vs_numpy_max_abs_err"] <= cs.GOLDEN_ATOL
+    assert "(not reached)" in lines[1]["voxel_budget"]
+    for ln in lines[2:4]:
+        assert ln["hm_max_abs_err"] == 0.0
+        assert set(ln["detections_card_cpu_let_off"]) == {
+            "map", "box_flip_0", "box_flip_1", "box_flip_2", "box_flip_3"}
+    golden = lines[-1]["golden"]
+    assert len(golden) == 10
+    assert max(g["max_abs_err"] for g in golden.values()) <= cs.GOLDEN_ATOL
+    assert lines[-1]["oracle_gt_as_detections"]["mAP"] > cs.ORACLE_FLOOR

@@ -213,6 +213,35 @@ def test_reader_trains_as_flax(cap):
         assert not grads[n][:DEAD_CHANNELS].any()
 
 
+@pytest.mark.parametrize("cap", [0, 10])
+def test_reader_training_ignores_a_buffer_of_mostly_padding(cap):
+    """The reader's gathers read real pillar rows for the points outside
+    the grid or the valid mask (so that their backward meets no long run of
+    one index): the canvas, the gradients and the running statistics of a
+    scene must not move when its buffer is padded to 8x with invalid rows
+    that hold in-range coordinates."""
+    rng = np.random.default_rng(5 + cap)
+    pts, valid = tie_scene(rng)
+    pad = scene(rng, P=7 * pts.shape[1])[0]
+    pts_pad = np.concatenate([pts, pad], 1)
+    valid_pad = np.concatenate([valid, np.zeros(pad.shape[:2], bool)], 1)
+    proj = rng.normal(size=(2,) + GRID + (FILTERS[-1],)).astype(np.float32)
+    runs = []
+    for p, v in ((pts, valid), (pts_pad, valid_pad)):
+        torch.manual_seed(0)
+        m = PillarFeatureNetDirect(num_input_features=5, num_filters=FILTERS,
+                                   voxel_size=VOXEL, pc_range=PC_RANGE,
+                                   grid_hw=GRID, pad_floor_cap=cap).train()
+        runs.append(port_reader_run(m, p, v, proj))
+    (out, grads, stats), (out_p, grads_p, stats_p) = runs
+    assert_close_of_max(out_p, out, 1e-6, "canvas")
+    for n in grads:
+        assert np.abs(grads[n]).max() > 0, n
+        assert_close_of_max(grads_p[n], grads[n], 1e-6, n)
+    for n in stats:
+        assert_close_of_max(stats_p[n], stats[n], 1e-6, n)
+
+
 def test_reader_phantom_reads_the_updated_statistics_once():
     """With the floor on, a phantom row that took its own batch statistics,
     or whose BatchNorm call updated the running statistics a second time,
