@@ -145,6 +145,39 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       of two scenes fed back as Detections on the card: mAP and mFAP >
       ORACLE_FLOOR.
 
+  Real nuScenes-format data, through the CLIs a user runs:
+  21. write_nuscenes writes a v1.0-trainval dataset from NUSC_SEED (a
+      train and a val scene of NUSC_KEYFRAMES keyframes at 2 Hz, 9 sweeps
+      at 20 Hz between them and 19 before the first, NUSC_SWEEP_POINTS
+      points a sweep: lidar clutter and the surface points of
+      NUSC_OBJECTS static, linear and nonlinear cars, in the sensor's
+      moving frame); cli.create_data nuscenes_data_prep --gt_database
+      (seconds, infos, database objects). Then cli.train --info_path
+      --db_info_path (GT-AUG, the prefetched pipeline, --tensorboard where
+      tensorboard imports) for one epoch of NUSC_KEYFRAMES steps at B = 1,
+      for forecast_n3dtf and pp_forecast_n3dtf: counts zeroed before each
+      step and read after it, 20 K2 forward + 19 K2 dx launches and no K1
+      a VoxelNet step, none at all a pillar step; every metric finite,
+      the checkpoint written; voxels a sample and how many reached
+      max_voxels_train. The host pipeline of one sample by part (native
+      sweep load, GT-AUG sample_all, augmentations, shuffle and pack,
+      whole sample; median of NUSC_HOST_REPS) with its points before and
+      after the pack. The VoxelNet trainer on these batches with
+      prefetch_depth 2 and 0 in turns (2, 0, 2, 0; NUSC_TURN_STEPS synced
+      steps each): the median wait for data against the median step, the
+      median period (wait + step), what the prefetch thread adds to the
+      step (depth 2's median step less depth 0's), and the card's busy
+      share under torch.profiler.
+  22. cli.evaluate --info_path of the val infos from phase 21's
+      checkpoints with --speed_test: per sample K2 20 times and K1 once
+      (VoxelNet), K1 once (pillars); the metrics finite. One val sample
+      through the same weights on the CPU: heatmaps within HM_ATOL,
+      detections matched as in phase 8. The same train info sampled
+      twice by two datasets from the same seeds: identical arrays. The
+      native sweep loader against the numpy reader (use_native=False) on
+      a full keyframe: identical. A pinned batch's copy on the card
+      against its pageable copy: identical.
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
@@ -233,6 +266,20 @@ GOLDEN_SETTINGS = {
     "oracle_top5": dict(tp_pct=0.6, cohort_analysis=False, topk=5,
                         association_oracle=True),
 }
+# the real-data phases (21-22): a nuScenes-format dataset written from
+# NUSC_SEED, one train and one val scene (data/splits.py), NUSC_KEYFRAMES
+# keyframes each at 2 Hz with NUSC_SWEEPS_BETWEEN sweeps at 20 Hz between
+# them, NUSC_SWEEP_POINTS points a sweep (about the per-sweep count of
+# nuScenes' 32-beam LIDAR_TOP) and NUSC_OBJECTS cars a keyframe within
+# NUSC_EXTENT m; NUSC_NSWEEPS sweeps a sample, so an aggregate of ~690k
+# points goes to the config's 300,000-point budget
+NUSC_SEED = 8
+NUSC_SCENES = ("scene-0001", "scene-0003")
+NUSC_KEYFRAMES, NUSC_SWEEPS_BETWEEN = 8, 9
+NUSC_SWEEP_POINTS, NUSC_OBJECTS, NUSC_EXTENT = 34720, 40, 50.0
+NUSC_NSWEEPS = 20
+NUSC_HOST_REPS = 5        # phase 21.3: median of these
+NUSC_TURN_STEPS = 6       # phase 21.4: trainer steps a prefetch turn
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the metrics JSON and CSV the evaluate CLI writes in phases 17-19
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -1968,6 +2015,627 @@ def metrics_engine_path(dev, card):
           f"the GT-as-predictions oracle: {oracle}")
 
 
+# ---------------------------------------------------------------------------
+# The real-data phases (21-22): a nuScenes-format dataset written from a seed
+# ---------------------------------------------------------------------------
+
+def _quat_z(yaw):
+    return [math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)]
+
+
+def _rot_z(yaw):
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _car_surface(rng, n, centre, heading, size):
+    """n points on the 4 sides and the top of a car box (global frame)."""
+    w, l, h = size
+    u = rng.uniform(-0.5, 0.5, (n, 3))
+    face = rng.integers(0, 5, n)
+    ax = np.where(face < 2, 0, np.where(face < 4, 1, 2))
+    side = np.where(ax == 2, 0.5, np.where(face % 2 == 0, -0.5, 0.5))
+    u[np.arange(n), ax] = side
+    local = u * [l, w, h] + [0.0, 0.0, h / 2]
+    return local @ _rot_z(heading).T + centre
+
+
+def write_nuscenes(root, seed, keyframes, between, points, objects, extent,
+                   lead, scenes=NUSC_SCENES):
+    """A nuScenes-format v1.0-trainval dataset under `root`, from `seed`:
+    the scene, sample, sample_data, ego_pose, calibrated_sensor,
+    sample_annotation, instance, category, attribute, log and map (no
+    raster) tables, and one LIDAR_TOP .bin of `points` points for each
+    sample_data. Each scene (a train name, then a val name of
+    data/splits.py) holds `keyframes` keyframes at 2 Hz with `between`
+    sweeps at 20 Hz between two of them and `lead` before the first; the
+    ego drives at 4-8 m/s on a gentle curve. `objects` cars a keyframe,
+    static, linear and nonlinear in turns, stand within `extent` m of the
+    ego's start; each sweep holds their surface points (more near the
+    sensor) and the lidar clutter of data/synthetic.py in the sensor's
+    frame, which moves with the ego. Returns the version."""
+    from futuredet_torch.data.synthetic import _lidar_clutter
+
+    rng = np.random.default_rng(seed)
+    version = "v1.0-trainval"
+    for d in (version, "samples/LIDAR_TOP", "sweeps/LIDAR_TOP"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    cs_t = np.array([0.94, 0.0, 1.84])
+    t = {k: [] for k in ("scene", "sample", "sample_data", "ego_pose",
+                         "sample_annotation", "instance", "log")}
+    t["calibrated_sensor"] = [{"token": "cs_lidar", "sensor_token": "lidar",
+                               "translation": cs_t.tolist(),
+                               "rotation": [1.0, 0.0, 0.0, 0.0],
+                               "camera_intrinsic": []}]
+    t["category"] = [{"token": "cat_car", "name": "vehicle.car",
+                      "description": ""}]
+    t["attribute"] = [{"token": "attr_parked", "name": "vehicle.parked"},
+                      {"token": "attr_moving", "name": "vehicle.moving"}]
+    t["map"] = [{"token": "map0", "filename": "", "category":
+                 "semantic_prior", "log_tokens": []}]
+    step = 0.5 / (between + 1)
+    for si, name in enumerate(scenes):
+        pre = f"s{si}_"
+        t["log"].append({"token": pre + "log", "location": "synthetic"})
+        t["map"][0]["log_tokens"].append(pre + "log")
+        speed, turn = rng.uniform(4, 8), rng.uniform(-0.04, 0.04)
+
+        def ego(tt):
+            yaw = turn * tt
+            return (np.array([speed * tt, 0.5 * turn * speed * tt ** 2,
+                              0.0]), yaw)
+
+        # cars: (kind, start centre, heading, size, speed, turn rate)
+        cars = []
+        while len(cars) < objects:
+            c = np.append(rng.uniform(-0.8 * extent, 0.8 * extent, 2), 0.0)
+            if np.hypot(*c[:2]) < 6 or any(
+                    np.hypot(*(c - o[1])[:2]) < 7 for o in cars):
+                continue
+            kind = ("static", "linear", "nonlinear")[len(cars) % 3]
+            cars.append((kind, c, rng.uniform(-np.pi, np.pi),
+                         (rng.uniform(1.7, 2.1), rng.uniform(4.2, 5.0),
+                          rng.uniform(1.5, 1.9)),
+                         0.0 if kind == "static" else rng.uniform(3, 9),
+                         rng.uniform(0.3, 0.6) * rng.choice([-1, 1])
+                         if kind == "nonlinear" else 0.0))
+
+        def car_at(car, tt):
+            _, c0, h0, _, v, w = car
+            if w == 0.0:
+                return c0 + v * tt * np.array([np.cos(h0), np.sin(h0),
+                                               0.0]), h0
+            h = h0 + w * tt
+            return c0 + (v / w) * np.array([np.sin(h) - np.sin(h0),
+                                            np.cos(h0) - np.cos(h), 0.0]), h
+
+        n_sd = lead + (keyframes - 1) * (between + 1) + 1
+        key_at = {lead + j * (between + 1): j for j in range(keyframes)}
+        t0_us = 1_500_000_000_000_000 + si * 10 ** 9
+        for k in range(n_sd):
+            tt = (k - lead) * step
+            sd_tok, pose_tok = f"{pre}sd{k}", f"{pre}pose{k}"
+            j = key_at.get(k)
+            # a sweep belongs to the next keyframe's sample
+            nxt = min((kk for kk in key_at if kk >= k), default=None)
+            sample_tok = f"{pre}sample{key_at[nxt]}"
+            e_t, e_yaw = ego(tt)
+            r_e = _rot_z(e_yaw)
+            parts, counts = [], []
+            for car in cars:
+                c, h = car_at(car, tt)
+                rng_m = np.hypot(*(c - e_t)[:2])
+                # 300 points at 10 m, 30 at 100 m, in a sweep of 34,720
+                n = max(1, int(min(0.0864 * points / max(rng_m, 1.0),
+                                   0.00864 * points)))
+                parts.append(_car_surface(rng, n, c, h, car[3]))
+                counts.append(n)
+            obj = np.concatenate(parts, 0)
+            obj = (obj - e_t) @ r_e - cs_t          # global -> sensor frame
+            clutter = _lidar_clutter(rng, points - len(obj), extent)
+            pts = np.concatenate([obj, clutter[:, :3]], 0)
+            feats = np.stack([rng.uniform(0, 255, points),
+                              rng.integers(0, 32, points)], -1)
+            fname = (f"{'samples' if j is not None else 'sweeps'}/"
+                     f"LIDAR_TOP/{pre}{k:04d}.bin")
+            np.concatenate([pts, feats], -1).astype(np.float32).tofile(
+                os.path.join(root, fname))
+            stamp = t0_us + int(round((k - lead) * step * 1e6))
+            t["ego_pose"].append({"token": pose_tok, "timestamp": stamp,
+                                  "translation": e_t.tolist(),
+                                  "rotation": _quat_z(e_yaw)})
+            t["sample_data"].append({
+                "token": sd_tok, "sample_token": sample_tok,
+                "ego_pose_token": pose_tok,
+                "calibrated_sensor_token": "cs_lidar", "timestamp": stamp,
+                "fileformat": "pcd", "is_key_frame": j is not None,
+                "height": 0, "width": 0, "filename": fname,
+                "prev": f"{pre}sd{k - 1}" if k else "",
+                "next": f"{pre}sd{k + 1}" if k + 1 < n_sd else ""})
+            if j is None:
+                continue
+            anns = []
+            for o, car in enumerate(cars):
+                c, h = car_at(car, tt)
+                tok = f"{pre}ann{j}_{o}"
+                anns.append(tok)
+                t["sample_annotation"].append({
+                    "token": tok, "sample_token": sample_tok,
+                    "instance_token": f"{pre}inst{o}",
+                    "translation": (c + [0.0, 0.0, car[3][2] / 2]).tolist(),
+                    "size": list(car[3]), "rotation": _quat_z(h),
+                    "prev": f"{pre}ann{j - 1}_{o}" if j else "",
+                    "next": f"{pre}ann{j + 1}_{o}"
+                    if j + 1 < keyframes else "",
+                    "num_lidar_pts": counts[o], "num_radar_pts": 0,
+                    "visibility_token": "4",
+                    "attribute_tokens": ["attr_parked" if car[0] == "static"
+                                         else "attr_moving"]})
+            t["sample"].append({
+                "token": sample_tok, "scene_token": pre + "scene",
+                "timestamp": stamp,
+                "prev": f"{pre}sample{j - 1}" if j else "",
+                "next": f"{pre}sample{j + 1}" if j + 1 < keyframes else "",
+                "data": {"LIDAR_TOP": sd_tok}, "anns": anns})
+        for o in range(objects):
+            t["instance"].append({
+                "token": f"{pre}inst{o}", "category_token": "cat_car",
+                "nbr_annotations": keyframes,
+                "first_annotation_token": f"{pre}ann0_{o}",
+                "last_annotation_token": f"{pre}ann{keyframes - 1}_{o}"})
+        t["scene"].append({
+            "token": pre + "scene", "name": name, "description": "",
+            "log_token": pre + "log", "nbr_samples": keyframes,
+            "first_sample_token": f"{pre}sample0",
+            "last_sample_token": f"{pre}sample{keyframes - 1}"})
+    for name, rows in t.items():
+        with open(os.path.join(root, version, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    return version
+
+
+class StepCounts:
+    """A trainer hook: the K1, K2 forward and K2 dx launches of each step
+    (the counts zeroed just before it and read just after it, synced), its
+    metrics, voxels a sample, and the host clock: the wait for the batch
+    (from the previous step's end) and the step itself."""
+
+    def __init__(self):
+        from futuredet_torch.ops import pallas_gather, pallas_nms
+        from futuredet_torch.ops import sparse_conv as sc_mod
+        self.k1, self.k2 = pallas_nms.rotate_nms_alive, \
+            pallas_gather.gather_conv
+        self.sc, self.dx_fn = sc_mod, sc_mod.subm_conv_dx
+        self.dx = 0
+        self.steps = []
+        self.t_end = None
+
+    def __enter__(self):
+        def counting_dx(*args):
+            before = self.k2.launches
+            out = self.dx_fn(*args)
+            self.dx += self.k2.launches - before
+            return out
+        self.sc.subm_conv_dx = counting_dx
+        return self
+
+    def __exit__(self, *exc):
+        self.sc.subm_conv_dx = self.dx_fn
+
+    def before_step(self, step, state, batch):
+        self.t_begin = time.perf_counter()
+        self.k1.launches = self.k2.launches = self.dx = 0
+
+    def after_step(self, step, state, metrics):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = {k: v.detach().cpu() for k, v in metrics.items()}
+        self.steps.append({
+            "step": step, "k2_forward": self.k2.launches - self.dx,
+            "k2_dx": self.dx, "k1": self.k1.launches,
+            "loss": float(m["loss"]),
+            "finite": all(bool(torch.isfinite(v).all())
+                          for v in m.values()),
+            "voxels": list(getattr(state.model, "num_voxels", [])),
+            "data_wait_ms": None if self.t_end is None
+            else (self.t_begin - self.t_end) * 1e3,
+            "step_ms": (t - self.t_begin) * 1e3})
+        self.t_end = t
+
+    def after_epoch(self, epoch, state):
+        pass
+
+    def after_train(self, state):
+        pass
+
+
+def run_train_cli(argv, hook):
+    """futuredet_torch.cli.train.main(argv) with `hook` added to the
+    trainer's. Returns (state, the log, seconds)."""
+    from futuredet_torch.train import trainer
+    real = trainer.train
+
+    def with_hook(*a, **kw):
+        kw["hooks"] = list(kw.get("hooks") or []) + [hook]
+        return real(*a, **kw)
+
+    from futuredet_torch.cli import train
+    trainer.train = with_hook
+    try:
+        t0 = time.perf_counter()
+        with LogCapture() as logs, hook:
+            state = train.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        trainer.train = real
+    return state, logs.lines, secs
+
+
+def nusc_create_data(card, root):
+    """Phase 21.1: the dataset, then create_data with the GT database.
+    Returns the train and val infos and the dbinfos pkl."""
+    import pickle
+
+    from futuredet_torch.cli import create_data
+
+    t0 = time.perf_counter()
+    version = write_nuscenes(root, NUSC_SEED, NUSC_KEYFRAMES,
+                             NUSC_SWEEPS_BETWEEN, NUSC_SWEEP_POINTS,
+                             NUSC_OBJECTS, NUSC_EXTENT, NUSC_NSWEEPS - 1)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_pkl, val_pkl = create_data.main([
+        "nuscenes_data_prep", "--root_path", root, "--version", version,
+        "--nsweeps", str(NUSC_NSWEEPS), "--gt_database", "--model",
+        VOX_NAME])
+    prep_s = time.perf_counter() - t0
+    db_pkl = os.path.join(root, f"dbinfos_train_{NUSC_NSWEEPS}sweeps_"
+                                "withvelo.pkl")
+    n = {}
+    for key, p in (("train", train_pkl), ("val", val_pkl), ("db", db_pkl)):
+        with open(p, "rb") as f:
+            obj = pickle.load(f)
+        n[key] = sum(len(v) for v in obj.values()) if key == "db" \
+            else len(obj)
+    files = [f for d in ("samples", "sweeps")
+             for f in os.listdir(os.path.join(root, d, "LIDAR_TOP"))]
+    emit({"phase": "nusc_create_data", "card": card,
+          "dataset": {"scenes": list(NUSC_SCENES),
+                      "keyframes_per_scene": NUSC_KEYFRAMES,
+                      "sweeps_between_keyframes": NUSC_SWEEPS_BETWEEN,
+                      "points_per_sweep": NUSC_SWEEP_POINTS,
+                      "cars_per_keyframe": NUSC_OBJECTS,
+                      "lidar_files": len(files), "seed": NUSC_SEED},
+          "write_s": round(write_s, 3), "create_data_s": round(prep_s, 3),
+          "infos_train": n["train"], "infos_val": n["val"],
+          "db_objects": n["db"]})
+    check(n["train"] == n["val"] == NUSC_KEYFRAMES,
+          f"create_data wrote {n['train']} train and {n['val']} val infos")
+    check(n["db"] > 0, "the GT database holds no object")
+    return train_pkl, val_pkl, db_pkl
+
+
+def nusc_train_cli(dev, card, model, train_pkl, db_pkl, work):
+    """Phase 21.2: cli.train on the train infos, GT-AUG from the dbinfos,
+    one epoch at B = 1, TensorBoard where it imports; launches counted per
+    step. Returns the hook's steps."""
+    from futuredet_torch.config import get_config
+
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        tb = True
+    except ImportError:
+        tb = False
+    hook = StepCounts()
+    state, logs, secs = run_train_cli(
+        ["--model", model, "--device", str(dev), "--info_path", train_pkl,
+         "--db_info_path", db_pkl, "--epochs", "1", "--batch_size", "1",
+         "--work_dir", work] + (["--tensorboard"] if tb else []), hook)
+    steps = hook.steps
+    want = (20, 19, 0) if model == VOX_NAME else (0, 0, 0)
+    for rec in steps:
+        check((rec["k2_forward"], rec["k2_dx"], rec["k1"]) == want,
+              f"{model} real-data train step {rec['step']}: K2 "
+              f"{rec['k2_forward']} forward + {rec['k2_dx']} dx, K1 "
+              f"{rec['k1']} (want {want})")
+        check(rec["finite"], f"{model} train step {rec['step']}: metric "
+              "not finite")
+    check(state.step == len(steps) == NUSC_KEYFRAMES,
+          f"{model}: {state.step} steps, {len(steps)} counted")
+    check(f"step_{state.step}.pt" in os.listdir(work),
+          f"{model}: no checkpoint in {os.listdir(work)}")
+    check(any("GT-AUG enabled" in ln for ln in logs), "GT-AUG is off")
+    tb_files = sorted(os.listdir(os.path.join(work, "tb"))) if tb else []
+    check(not tb or tb_files, "--tensorboard wrote no event file")
+    budget = get_config(model).voxel.max_voxels_train
+    voxels = [v for rec in steps for v in rec["voxels"]]
+    emit({"phase": "nusc_train_cli", "model": model, "card": card,
+          "steps": state.step, "train_s": round(secs, 3),
+          "tensorboard": tb_files if tb else "not importable",
+          "launches_per_step": [(r["k2_forward"], r["k2_dx"], r["k1"])
+                                for r in steps],
+          "losses": [r["loss"] for r in steps],
+          "voxels_per_sample": voxels,
+          "samples_at_max_voxels_train": sum(v >= budget for v in voxels),
+          "max_voxels_train": budget,
+          "data_wait_ms": [r["data_wait_ms"] for r in steps],
+          "step_ms": [r["step_ms"] for r in steps],
+          "budget_warning": [ln for ln in logs if "budget" in ln]})
+    return steps
+
+
+def nusc_host_times(card, train_pkl, db_pkl):
+    """Phase 21.3: one sample's host pipeline in parts, median of
+    NUSC_HOST_REPS, on the CLI's train dataset."""
+    from futuredet_torch.config import get_config
+    from futuredet_torch.data import pipeline
+    from futuredet_torch.data.augment import apply_train_augmentations
+    from futuredet_torch.data.gt_database import build_db_sampler
+
+    cfg = get_config(VOX_NAME)
+    ds = pipeline.NuScenesForecastDataset(
+        cfg, train_pkl, train=True, seed=0,
+        db_sampler=build_db_sampler(cfg, train_pkl, db_pkl, seed=0))
+    info = ds.infos[0]
+    rng = np.random.default_rng(0)
+    parts = {}
+
+    def timed(name, fn):
+        ts = []
+        for _ in range(NUSC_HOST_REPS):
+            t0 = time.perf_counter()
+            out = fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        parts[name] = statistics.median(ts)
+        return out
+
+    pts = timed("native_sweep_load", lambda: pipeline.aggregate_sweeps(
+        info, cfg.data.nsweeps))
+    gt, cls, valid, traj, _ = pipeline.pack_gt(
+        cfg, info["gt_boxes"], info["gt_names"], info["gt_trajectory"],
+        cfg.data.class_names)
+    n0 = int(valid[0].sum())
+    sampled = timed("gt_aug_sample_all",
+                    lambda: ds.db_sampler.sample_all(gt[0, :n0]))
+    pasted = np.concatenate([sampled["points"][:, :pts.shape[1]], pts], 0)
+    d = cfg.data
+    timed("augmentations", lambda: apply_train_augmentations(
+        gt, pasted, rng, rot_noise=d.global_rot_noise,
+        scale_noise=d.global_scale_noise,
+        translate_std=d.global_translate_std))
+
+    def shuffle_pack():
+        p = pasted
+        if d.shuffle_points and len(p) <= cfg.voxel.max_points:
+            p = p[rng.permutation(len(p))]
+        return pipeline.pack_points(p, cfg.voxel.max_points, rng)
+
+    packed, pvalid = timed("shuffle_and_pack", shuffle_pack)
+    timed("whole_sample", lambda: ds.sample(0))
+    emit({"phase": "nusc_host_times", "card": card, "host_ms": parts,
+          "reps": NUSC_HOST_REPS, "points_aggregated": len(pts),
+          "points_pasted": len(sampled["points"]),
+          "points_after_pack": int(pvalid.sum()),
+          "max_points": cfg.voxel.max_points,
+          "objects_pasted": len(sampled["gt_names"])})
+    return parts
+
+
+def cuda_profiler():
+    """torch.profiler over the card's activity alone (no host events)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def nusc_prefetch_turns(dev, card, train_pkl, db_pkl):
+    """Phase 21.4: the trainer on the CLI's real-data batches with
+    prefetch_depth 2 and 0 in turns, NUSC_TURN_STEPS steps each, every
+    step synced: the wait for data and the step on the host clock, and
+    the card's busy share (its kernels' time under torch.profiler over
+    the wall of steps 1 on)."""
+    import dataclasses
+
+    from futuredet_torch.cli import train as train_cli
+    from futuredet_torch.config import get_config
+    from futuredet_torch.train import trainer
+
+    cfg = get_config(VOX_NAME)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, total_epochs=1, log_interval=NUSC_TURN_STEPS))
+    args = train_cli.parse_args(["--model", VOX_NAME, "--info_path",
+                                 train_pkl, "--db_info_path", db_pkl])
+    turns = {2: [], 0: []}
+    for depth in (2, 0, 2, 0):
+        cfg_d, batches, _ = train_cli.info_batches(cfg, args, 1,
+                                                   pin_memory=True)
+        hook = StepCounts()
+        prof = cuda_profiler()
+        real_before = hook.before_step
+
+        def before(step, state, batch, real_before=real_before, prof=prof,
+                   hook=hook):
+            if step == 1:
+                torch.cuda.synchronize()
+                hook.t_prof = time.perf_counter()
+                prof.start()
+            real_before(step, state, batch)
+
+        hook.before_step = before
+        with hook:
+            trainer.train(cfg_d, batches, steps_per_epoch=NUSC_TURN_STEPS,
+                          hooks=[hook], device=dev, prefetch_depth=depth)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - hook.t_prof
+        prof.stop()
+        busy_us = sum(getattr(e, "device_time_total", 0.0)
+                      or getattr(e, "cuda_time_total", 0.0)
+                      for e in prof.key_averages()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        turns[depth].append({
+            "data_wait_ms": [r["data_wait_ms"] for r in hook.steps[1:]],
+            "step_ms": [r["step_ms"] for r in hook.steps[1:]],
+            "busy_share": busy_us / 1e6 / wall})
+    out = {}
+    for depth, runs in turns.items():
+        waits = [w for r in runs for w in r["data_wait_ms"]]
+        steps = [s for r in runs for s in r["step_ms"]]
+        out[f"prefetch_depth_{depth}"] = {
+            "data_wait_ms_median": statistics.median(waits),
+            "step_ms_median": statistics.median(steps),
+            "period_ms_median": statistics.median(
+                w + s for w, s in zip(waits, steps)),
+            "wait_share": statistics.median(waits) / (
+                statistics.median(waits) + statistics.median(steps)),
+            "busy_share_per_turn": [r["busy_share"] for r in runs],
+            "data_wait_ms": waits, "step_ms": steps}
+    # the prefetch thread's host work runs beside the step's launches:
+    # what it adds to the step itself
+    step_inflation = (out["prefetch_depth_2"]["step_ms_median"]
+                      - out["prefetch_depth_0"]["step_ms_median"])
+    emit({"phase": "nusc_prefetch", "model": VOX_NAME, "card": card,
+          "steps_per_turn": NUSC_TURN_STEPS,
+          "turns": "depth 2, 0, 2, 0; step 0 of each not counted",
+          "step_ms_added_by_the_thread": step_inflation, **out})
+    return out
+
+
+def nusc_eval_cli(dev, card, model, val_pkl, ckpt_dir):
+    """Phase 22.1: cli.evaluate on the val infos from phase 21's
+    checkpoint, with --speed_test. Returns the launches."""
+    summary, per_call, total, logs, secs = run_evaluate(eval_args(
+        dev, model, f"metrics_{model}_nusc", "--info_path", val_pkl,
+        "--checkpoint_dir", ckpt_dir, "--cohort_analysis", "--speed_test"))
+    want = (1, 20) if model == VOX_NAME else (1, 0)
+    check(per_call == [want] * NUSC_KEYFRAMES,
+          f"{model} real-data eval: (K1, K2) launches {per_call}")
+    check(any(f"restored checkpoint step {NUSC_KEYFRAMES}" in ln
+              for ln in logs), f"{model}: phase 21's checkpoint not restored")
+    check_summary(summary, f"{model} real-data eval")
+    check(os.path.exists(metrics_path(f"metrics_{model}_nusc")),
+          "no metrics JSON")
+    speed = [ln for ln in logs if ln.startswith("speed test:")]
+    check(len(speed) == 1, f"{speed}")
+    emit({"phase": "nusc_eval_cli", "model": model, "card": card,
+          "samples": len(per_call), "launches_per_sample": per_call,
+          "eval_s": round(secs, 3), "speed_test": speed[0],
+          "voxel_budget": [ln for ln in logs if ln.startswith("voxel")],
+          "cohorts": {c: headline(summary, c)
+                      for c in summary["mean_dist_aps"]}})
+    return {"k1": total[0], "k2": total[1]}
+
+
+def nusc_checks(dev, card, train_pkl, val_pkl, db_pkl, ckpts):
+    """Phase 22.2-5: one val sample card against CPU for each model, the
+    same train info sampled twice, the native sweep loader against the
+    numpy reader on a full keyframe, and a pinned batch's copy on the card
+    against its pageable copy."""
+    import pickle
+
+    from futuredet_torch.config import get_config
+    from futuredet_torch.data import pipeline
+    from futuredet_torch.data.gt_database import build_db_sampler
+    from futuredet_torch.eval.decode import decode_and_nms
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.train.checkpoints import CheckpointManager
+
+    out = {}
+    # 2. card against CPU, one val sample, the phase-21 weights
+    for model, ckpt in ckpts.items():
+        cfg, ds = pipeline.info_dataset(get_config(model), val_pkl,
+                                        train=False)
+        b = next(pipeline.batches_from_dataset(ds, cfg, 1, shuffle=False,
+                                               loop=False))
+        runs = {}
+        for d in (dev, torch.device("cpu")):
+            m = build_detector(cfg, device=d, seed=0)
+            CheckpointManager(ckpt).restore(m)
+            m.eval()
+            with torch.no_grad():
+                preds = m(b["points"].to(d), b["points_valid"].to(d))
+                runs[d.type] = (preds, decode_and_nms(cfg, preds))
+        hm_err = max(float((torch.sigmoid(g["hm"]).cpu()
+                            - torch.sigmoid(c["hm"])).abs().max())
+                     for g, c in zip(runs[dev.type][0], runs["cpu"][0]))
+        check(hm_err <= HM_ATOL, f"{model} real data: heatmap card vs CPU "
+              f"{hm_err}")
+        n_card, n_cpu, let_off = check_detections_match(
+            cfg, runs[dev.type][1], runs["cpu"][1], hm_err)
+        out[model] = {"hm_max_abs_err": hm_err, "hm_atol": HM_ATOL,
+                      "detections_card": n_card, "detections_cpu": n_cpu,
+                      "let_off_at_the_cut": let_off}
+    # 3. the same info sampled twice: two datasets from the same seeds
+    cfg = get_config(VOX_NAME)
+    samples = [pipeline.NuScenesForecastDataset(
+        cfg, train_pkl, train=True, seed=0,
+        db_sampler=build_db_sampler(cfg, train_pkl, db_pkl, seed=0)
+    ).sample(0) for _ in range(2)]
+    same = all(np.array_equal(samples[0][k], samples[1][k])
+               for k in samples[0] if isinstance(samples[0][k], np.ndarray))
+    check(same, "the same info sampled twice differs")
+    # 4. the native sweep loader against the numpy reader
+    with open(val_pkl, "rb") as f:
+        info = pickle.load(f)[NUSC_KEYFRAMES - 1]
+    t0 = time.perf_counter()
+    nat = pipeline.aggregate_sweeps(info, NUSC_NSWEEPS)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = pipeline.aggregate_sweeps(info, NUSC_NSWEEPS, use_native=False)
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    check(nat.shape == ref.shape and np.array_equal(nat, ref),
+          f"native sweeps {nat.shape} differ from numpy's {ref.shape}")
+    # 5. a pinned batch on the card against its pageable copy
+    ds_pin, ds_page = (pipeline.NuScenesForecastDataset(
+        cfg, val_pkl, train=False, class_balanced=False) for _ in range(2))
+    pinned = next(pipeline.batches_from_dataset(ds_pin, cfg, 1,
+                                                shuffle=False, loop=False,
+                                                pin_memory=True))
+    page = next(pipeline.batches_from_dataset(ds_page, cfg, 1,
+                                              shuffle=False, loop=False))
+    leaves = [("points",), ("points_valid",)] + [
+        ("targets_raw", k) for k in pinned["targets_raw"]]
+
+    def get(b, path):
+        for k in path:
+            b = b[k]
+        return b
+
+    check(all(get(pinned, p).is_pinned() for p in leaves),
+          "a batch of pin_memory=True holds a pageable tensor")
+    on_card = [get(pinned, p).to(dev, non_blocking=True) for p in leaves]
+    ref_card = [get(page, p).to(dev) for p in leaves]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, r) for a, r in zip(on_card, ref_card)),
+          "a pinned batch's copy differs from the pageable one")
+    emit({"phase": "nusc_checks", "card": card, "card_vs_cpu": out,
+          "same_info_twice_identical": same,
+          "native_vs_numpy_identical": True, "keyframe_points": len(nat),
+          "native_ms": nat_ms, "numpy_ms": ref_ms,
+          "pinned_vs_pageable_identical": True,
+          "pinned_tensors": len(leaves)})
+
+
+def nusc_path(dev, card, work):
+    """Phases 21-22. Returns the launches of each real-data path."""
+    root = os.path.join(work, "nuscenes")
+    train_pkl, val_pkl, db_pkl = nusc_create_data(card, root)
+    ckpts, launches = {}, {}
+    for model in (VOX_NAME, NAME):
+        ckpts[model] = os.path.join(work, f"nusc_{model}")
+        steps = nusc_train_cli(dev, card, model, train_pkl, db_pkl,
+                               ckpts[model])
+        launches[f"{model}_nusc_train"] = {
+            "k1": sum(r["k1"] for r in steps),
+            "k2": sum(r["k2_forward"] + r["k2_dx"] for r in steps)}
+    nusc_host_times(card, train_pkl, db_pkl)
+    nusc_prefetch_turns(dev, card, train_pkl, db_pkl)
+    for model in (VOX_NAME, NAME):
+        launches[f"{model}_nusc_eval"] = nusc_eval_cli(
+            dev, card, model, val_pkl, ckpts[model])
+    nusc_checks(dev, card, train_pkl, val_pkl, db_pkl, ckpts)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2016,9 +2684,11 @@ def main() -> int:
         vox_eval = cli_voxelnet_path(dev, card, vox_ckpt, vox["scene_ms"])
         tta = tta_path(dev, card, {NAME: pp_eval.pop("checkpoint_dir"),
                                    VOX_NAME: vox_ckpt})
+        nusc = nusc_path(dev, card, work)
     metrics_engine_path(dev, card)
 
-    evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta}
+    evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta,
+             **nusc}
     print(card, flush=True)
     k2 = vox["k2"]
     emit({"kernels": [{

@@ -7,9 +7,17 @@ reference `evaluate.py`'s flags (README.md:174-185): --forecast_mode,
 --extractBox. It writes the metrics JSON and the reference CSV columns of
 evaluate.py:22-54.
 
+  python -m futuredet_torch.cli.evaluate --model forecast_n3dtf \\
+      --info_path R/infos_val_20sweeps_withvelo_filter_True.pkl
   python -m futuredet_torch.cli.evaluate --model pp_forecast_n3dtf \\
       --synthetic 8 --checkpoint_dir work/pp --forecast_mode velocity_dense \\
       --cohort_analysis --K 5
+
+`--info_path` evaluates the infos pkl of `cli/create_data.py` in order
+through the data pipeline (`data/pipeline.py`, no augmentation). Its
+batches stream from a prefetch thread: where the JAX CLI holds the whole
+evaluation set in memory, this one holds a few batches. `--synthetic N`
+evaluates N scenes of `data/synthetic.py`.
 
 It runs on the card unless given `--device cpu`, and raises when no card is
 found. Per batch, `build_detector` -> forward -> `decode_and_nms` (or a
@@ -109,10 +117,6 @@ def parse_args(argv=None):
 def refuse_unported(args, cfg) -> None:
     """Flags whose paths the port does not have yet raise, naming their
     ROADMAP.md item."""
-    if args.info_path:
-        raise NotImplementedError(
-            "--info_path: the nuScenes data pipeline is not ported yet "
-            "(ROADMAP.md, queue 1: the data pipeline); use --synthetic N")
     if args.space > 1 or args.coordinator_address \
             or (args.num_processes or 1) > 1:
         raise NotImplementedError(
@@ -205,6 +209,8 @@ def main(argv=None):
 
     from ..config import get_config, tiny_variant
     from ..data.feed import pack_points
+    from ..data.pipeline import batches_from_dataset, info_dataset
+    from ..data.prefetch import prefetch
     from ..eval.evaluator import (detections_to_predictions,
                                   gt_records_from_arrays, host_detections)
     from ..eval.metrics import evaluate_forecasts
@@ -221,12 +227,19 @@ def main(argv=None):
 
     if args.eval_only:
         # re-scoring a saved detections pkl needs no model or checkpoint
-        eval_batches = []
+        eval_batches, n_b = [], 0
     elif args.synthetic:
         eval_batches = synthetic_batches(cfg, args.synthetic,
                                          args.batch_size, args.seed)
+        n_b = len(eval_batches)
+    elif args.info_path:
+        cfg, ds = info_dataset(cfg, args.info_path, train=False)
+        eval_batches = prefetch(batches_from_dataset(
+            ds, cfg, args.batch_size, shuffle=False, loop=False), depth=2)
+        n_b = len(ds) // args.batch_size
     else:
-        raise SystemExit("no dataset: pass --synthetic N")
+        raise SystemExit(
+            "no dataset: pass --info_path <infos pkl> or --synthetic N")
 
     prototypes = None
     if args.postprocess:
@@ -293,31 +306,36 @@ def main(argv=None):
             if on_card:
                 torch.cuda.synchronize()
 
-        n_b = len(eval_batches)
         # never time batch 0 (first launches, kernel builds)
         lo_t = max(n_b // 3, 1)
         hi_t = max(2 * n_b // 3, lo_t + 1)
         lat, inflight = [], deque()
         budget = cfg.voxel.max_voxels_eval
+        it = iter(eval_batches)
+
+        def next_slice():
+            b = next(it, None)
+            return None if b is None else (b, dev_slice(b))
+
         # the next batch's points go to the device while this one computes
-        dev_q = deque([dev_slice(eval_batches[0])] if eval_batches else [])
-        for bi, b in enumerate(eval_batches):
+        upcoming = next_slice()
+        bi = 0
+        while upcoming is not None:
+            b, feed = upcoming
             probe = args.speed_test and lo_t <= bi < hi_t and n_b >= 3
             if probe:
                 # drain pending work so the probe times only this batch
                 while inflight:
                     consume(inflight.popleft())
                 sync()
-            feed = dev_q.popleft()
-            if not probe and bi + 1 < n_b:
-                dev_q.append(dev_slice(eval_batches[bi + 1]))
+            else:
+                upcoming = next_slice()
             t0 = time.perf_counter()
             det = infer(*feed)
             if probe:
                 sync()
                 lat.append((time.perf_counter() - t0) / feed[0].shape[0])
-                if bi + 1 < n_b:
-                    dev_q.append(dev_slice(eval_batches[bi + 1]))
+                upcoming = next_slice()
             if bi == 0 and hasattr(model, "num_voxels"):
                 # the port never drops a sparse site; the voxelizer's
                 # budget is the only limit
@@ -330,6 +348,7 @@ def main(argv=None):
             inflight.append((*to_host(det), b["gt"], b["tokens"]))
             while len(inflight) >= 2:
                 consume(inflight.popleft())
+            bi += 1
         while inflight:
             consume(inflight.popleft())
         if args.speed_test and lat:

@@ -1,18 +1,24 @@
-"""Training CLI on synthetic scenes, with per-epoch validation.
+"""Training CLI on nuScenes infos or synthetic scenes, with per-epoch
+validation.
 
 The port's counterpart of `futuredet_tpu/cli/train.py` (reference
 `train.py` + `tools/train.py`): model names resolve to configs, work dirs
-are `models/{experiment}/{dataset}_{architecture}_{model}_detection`, and
-`--synthetic N` trains on N scenes of `data/synthetic.py` (seeds seed + i,
-lidar-statistics clutter), cycled.
+are `models/{experiment}/{dataset}_{architecture}_{model}_detection`.
+`--info_path` trains on the infos pkl of `cli/create_data.py` through the
+data pipeline (`data/pipeline.py`: CBGS, GT-AUG from the dbinfos next to
+the infos unless `--no_gt_aug`, the augmentations), prefetched on a
+thread; `--synthetic N` trains on N scenes of `data/synthetic.py` (seeds
+seed + i, lidar-statistics clutter), cycled. `--tensorboard` logs the
+scalars to {work_dir}/tb.
 
+  python -m futuredet_torch.cli.train --model forecast_n3dtf \\
+      --info_path R/infos_train_20sweeps_withvelo_filter_True.pkl
   python -m futuredet_torch.cli.train --model pp_forecast_n3dtf \\
       --synthetic 64 --epochs 2 --val_synthetic 4
 
 It runs on the card unless given `--device cpu`, and raises when no card is
-found. The real-data pipeline, two-stage grafting, TensorBoard, the
-profiler, spatial sharding and multi-process training raise, naming their
-ROADMAP.md items.
+found. Two-stage grafting, the profiler, spatial sharding and
+multi-process training raise, naming their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -35,7 +41,12 @@ def parse_args(argv=None):
     p.add_argument("--dataset", default="nusc")
     p.add_argument("--architecture", default="centerpoint")
     p.add_argument("--info_path", default=None, help="nuScenes infos pkl")
-    p.add_argument("--db_info_path", default=None, help="GT-AUG dbinfos pkl")
+    p.add_argument("--db_info_path", default=None,
+                   help="GT-AUG dbinfos pkl (default: dbinfos_train_"
+                        "{nsweeps}sweeps_withvelo.pkl next to --info_path)")
+    p.add_argument("--no_gt_aug", action="store_true",
+                   help="disable GT-AUG paste sampling even when dbinfos "
+                        "exist (ref db_sampler, configs n3dtf:110-141)")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic scenes")
     p.add_argument("--epochs", type=int, default=None)
@@ -64,7 +75,8 @@ def parse_args(argv=None):
                    help="shrunken geometry for smoke tests")
     p.add_argument("--profile", default=None, help="trace dir (not ported)")
     p.add_argument("--tensorboard", action="store_true",
-                   help="scalars to {work_dir}/tb (not ported)")
+                   help="log scalars to {work_dir}/tb (ref torchie "
+                        "TensorboardLoggerHook)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (the default) raises without a "
                         "card, cpu runs the plain PyTorch versions")
@@ -74,19 +86,10 @@ def parse_args(argv=None):
 def refuse_unported(args, cfg) -> None:
     """Flags whose paths the port does not have yet raise, naming their
     ROADMAP.md item."""
-    if args.info_path or args.db_info_path:
-        raise NotImplementedError(
-            "--info_path / --db_info_path: the nuScenes data pipeline and "
-            "GT-AUG are not ported yet (ROADMAP.md, queue 1: the data "
-            "pipeline); use --synthetic N")
     if args.first_stage_checkpoint or cfg.model.two_stage_refine:
         raise NotImplementedError(
             "two-stage configs and --first_stage_checkpoint are not ported "
             "yet (ROADMAP.md, queue 1: long tail, models/two_stage.py)")
-    if args.tensorboard:
-        raise NotImplementedError(
-            "--tensorboard: the TensorBoard hook is not ported yet "
-            "(ROADMAP.md, queue 1: the trainer's extras)")
     if args.profile:
         raise NotImplementedError(
             "--profile: utils/profiling.py is not ported yet (ROADMAP.md, "
@@ -141,11 +144,35 @@ def make_val_fn(cfg, n: int, device):
     return val_fn
 
 
+def info_batches(cfg, args, batch_size: int, pin_memory: bool):
+    """The real-data branch of the JAX CLI: GT-AUG unless --no_gt_aug, the
+    CBGS-resampled train dataset of --info_path, and its looping batches
+    without the host `gt` and `tokens`. Returns (cfg with the data's point
+    width, batches, steps per epoch)."""
+    from ..data.pipeline import batches_from_dataset, info_dataset
+
+    # GT-AUG paste sampler (ref Preprocess builds it whenever the config
+    # carries a db_sampler dict, preprocess.py:103-106; groups from
+    # cfg.data.sample_groups mirror configs n3dtf:110-123)
+    cfg, ds = info_dataset(cfg, args.info_path, train=True, seed=args.seed,
+                           gt_aug=not args.no_gt_aug,
+                           db_info_path=args.db_info_path)
+    if ds.db_sampler is not None:
+        log.info("GT-AUG enabled (groups %s)", dict(cfg.data.sample_groups))
+    elif not args.no_gt_aug:
+        log.warning("GT-AUG disabled: no dbinfos next to %s", args.info_path)
+    batches = ({k: v for k, v in b.items() if k not in ("gt", "tokens")}
+               for b in batches_from_dataset(ds, cfg, batch_size,
+                                             seed=args.seed,
+                                             pin_memory=pin_memory))
+    return cfg, batches, max(len(ds) // batch_size, 1)
+
+
 def main(argv=None):
     from ..config import get_config, tiny_variant
     from ..data.synthetic import make_batch
     from ..models.detector import resolve_device
-    from ..train.trainer import train
+    from ..train.trainer import TensorBoardHook, train
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
@@ -154,8 +181,9 @@ def main(argv=None):
     if args.tiny:
         cfg = tiny_variant(cfg)
     refuse_unported(args, cfg)
-    if not args.synthetic:
-        raise SystemExit("no dataset: pass --synthetic N")
+    if not args.synthetic and not args.info_path:
+        raise SystemExit(
+            "no dataset: pass --info_path <infos pkl> or --synthetic N")
     dev = resolve_device(args.device)
     cfg = train_config(cfg, args)
     work_dir = args.work_dir or os.path.abspath(
@@ -163,19 +191,28 @@ def main(argv=None):
         f"{args.model}_detection")
     batch_size = args.batch_size or cfg.train.batch_size_per_device
 
-    n_batches = max(args.synthetic // batch_size, 1)
-    cached = []
-    for i in range(n_batches):
-        b = make_batch(cfg, batch_size, seed=args.seed + i,
-                       clutter_mode="lidar")
-        b.pop("gt")
-        cached.append(b)
+    if args.synthetic:
+        n_batches = max(args.synthetic // batch_size, 1)
+        cached = []
+        for i in range(n_batches):
+            b = make_batch(cfg, batch_size, seed=args.seed + i,
+                           clutter_mode="lidar")
+            b.pop("gt")
+            cached.append(b)
+        batches, steps_per_epoch = itertools.cycle(cached), n_batches
+    else:
+        cfg, batches, steps_per_epoch = info_batches(
+            cfg, args, batch_size, pin_memory=dev.type == "cuda")
 
     val_fn = make_val_fn(cfg, args.val_synthetic, dev) \
         if args.val_synthetic else None
-    state = train(cfg, itertools.cycle(cached), steps_per_epoch=n_batches,
+    hooks = []
+    if args.tensorboard:
+        hooks.append(TensorBoardHook(os.path.join(work_dir, "tb"),
+                                     interval=cfg.train.log_interval))
+    state = train(cfg, batches, steps_per_epoch=steps_per_epoch,
                   work_dir=work_dir, resume=args.resume_from, val_fn=val_fn,
-                  device=dev)
+                  hooks=hooks, device=dev)
     log.info("training done at step %d; checkpoints in %s", state.step,
              work_dir)
     return state

@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels and its host C++ library.
 
 Each `futuredet_torch/csrc/*.cu` is compiled by `nvcc`, and each
-`futuredet_torch/csrc/*.cpp` (host code: the metric engine's matcher) by
-`g++ -O3 -shared -fPIC`, into its own shared library with a plain C
-interface, named after the hash of its source and flags, under
+`futuredet_torch/csrc/*.cpp` (host code: the metric engine's matcher; the
+sweep loader, voxelizer and shuffle) by `g++ -O3 -shared -fPIC -pthread`,
+into its own shared library with a plain C interface, named after the
+hash of its source and flags, under
 `build/torch_kernels/` at the root of the checkout, and loaded with
 `ctypes`. A source is built at its first use and again when its hash
 changes; `build_all` starts one compiler per source at once. Nothing here
@@ -27,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # nms_kernel.cu must round as its plain PyTorch version: no contraction
 EXTRA_FLAGS = {"nms_kernel.cu": ["-fmad=false"]}
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-Wall"]
+# -pthread: host_data.cpp's sweep loader runs std::thread workers
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall"]
 SUFFIXES = (".cu", ".cpp")
 
 _loaded: Dict[str, ctypes.CDLL] = {}

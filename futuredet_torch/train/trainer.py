@@ -11,11 +11,16 @@ into a checkpoint at the next step boundary and a clean return, and
 `val_fn(state)` at each epoch's end (the reference's Trainer.val phase),
 its dict logged.
 
+Batches come through the prefetcher (`data/prefetch.py`, `prefetch_depth`
+batches ahead on one thread, as the JAX trainer has it), so the host
+pipeline of the next batch runs while the card computes this one; pinned
+batches (`data/pipeline.py::batches_from_dataset(pin_memory=True)`) then
+copy to the card behind the host. `TensorBoardHook` logs the scalar
+metrics.
+
 The sparse middle never drops a site; the only budget is the voxelizer's
 `max_voxels_train` per sample, and a sample that reaches it draws a
-warning (the counterpart of the JAX package's capacity check). The
-TensorBoard hook, the prefetcher and data parallelism are queued in
-ROADMAP.md.
+warning (the counterpart of the JAX package's capacity check).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 from torch import nn
 
 from ..config import ExperimentConfig
+from ..data.prefetch import prefetch
 from ..models.detector import build_detector, resolve_device
 from .checkpoints import CheckpointManager
 from .step import make_optimizer, train_step
@@ -60,6 +66,47 @@ class Hook:
         pass
 
 
+class TensorBoardHook(Hook):
+    """Scalar logging to TensorBoard (ref torchie TensorboardLoggerHook,
+    det3d/torchie/trainer/hooks/logger/tensorboard.py), as the JAX
+    package's hook: the means of the 0-d metrics over each `interval`
+    steps as `train/<key>` at the window's last step, and the partial
+    window past the last boundary at the end. Without
+    `torch.utils.tensorboard` (or its event writer) one warning, then no
+    logging."""
+
+    def __init__(self, log_dir: str, interval: int = 25):
+        self.interval = interval
+        self._buf = MetricBuffer()
+        self._last_step = 0
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self.writer = SummaryWriter(log_dir=log_dir)
+        except Exception as e:
+            log.warning("tensorboard unavailable (%s): TB logging disabled",
+                        e)
+            self.writer = None
+
+    def after_step(self, step: int, state: TrainState, metrics: Dict):
+        if self.writer is None:
+            return
+        self._buf.push({k: v for k, v in metrics.items()
+                        if torch.as_tensor(v).dim() == 0})
+        self._last_step = step
+        if (step + 1) % self.interval == 0:
+            for k, v in self._buf.mean_and_clear().items():
+                self.writer.add_scalar(f"train/{k}", v, step + 1)
+
+    def after_train(self, state: TrainState):
+        if self.writer is None:
+            return
+        # the partial window past the last interval boundary
+        for k, v in self._buf.mean_and_clear().items():
+            self.writer.add_scalar(f"train/{k}", v, self._last_step + 1)
+        self.writer.flush()
+        self.writer.close()
+
+
 class MetricBuffer:
     """Windowed means for log lines (ref torchie LogBuffer). `push` keeps
     the device tensors; `mean_and_clear` copies them to the host once."""
@@ -83,6 +130,9 @@ class MetricBuffer:
 
 
 def _to_device(batch: Dict, dev: torch.device) -> Dict:
+    """Copy a batch's tensors to `dev`. From pinned memory the copies run
+    behind the host; the caching host allocator keeps a pinned block from
+    reuse until the copy that reads it is done."""
     return {k: (_to_device(v, dev) if isinstance(v, dict)
                 else v.to(dev, non_blocking=True)
                 if isinstance(v, torch.Tensor) else v)
@@ -93,12 +143,15 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
           steps_per_epoch: int, work_dir: Optional[str] = None,
           resume: bool = False, hooks: Optional[List[Hook]] = None,
           val_fn: Optional[Callable[[TrainState], Dict]] = None,
-          device=None, log_fn: Callable[[str], None] = log.info
-          ) -> TrainState:
+          device=None, prefetch_depth: int = 2,
+          log_fn: Callable[[str], None] = log.info) -> TrainState:
     """Run the schedule of `cfg.train.total_epochs` epochs over `batches`
     (an iterator of {"points", "points_valid", "targets_raw"} batches,
-    e.g. `data/synthetic.py::make_batch`) on `device` (default: the card),
-    from `build_detector(cfg, seed=cfg.train.seed)`. At each epoch's end
+    e.g. `data/synthetic.py::make_batch` or `data/pipeline.py::
+    batches_from_dataset`) on `device` (default: the card), from
+    `build_detector(cfg, seed=cfg.train.seed)`. With `prefetch_depth` > 0
+    a thread keeps that many batches ready ahead of the loop; 0 takes
+    each batch from `batches` when the step needs it. At each epoch's end
     `val_fn(state)`, if given, runs with the model in eval mode and no
     autograd, and its dict is logged. Returns the state after the last step
     taken."""
@@ -125,11 +178,14 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
             olds[sig] = signal.signal(sig, _on_preempt)
         except ValueError:          # not in the main thread
             pass
+    it = prefetch(iter(batches), depth=prefetch_depth) \
+        if prefetch_depth > 0 else iter(batches)
     try:
-        _run_loop(cfg, state, iter(batches), dev, total_steps,
-                  steps_per_epoch, ckpt, hooks or [], val_fn, preempted,
-                  log_fn)
+        _run_loop(cfg, state, it, dev, total_steps, steps_per_epoch, ckpt,
+                  hooks or [], val_fn, preempted, log_fn)
     finally:
+        if prefetch_depth > 0:
+            it.close()
         # a leaked handler would make the process ignore later SIGTERMs
         for sig, old in olds.items():
             signal.signal(sig, old)

@@ -1,8 +1,10 @@
 """The port's train and evaluate CLIs on the CPU (`--device cpu --tiny`):
 checkpoints, per-epoch validation, a non-latest --modelCheckPoint,
 --extractBox then --eval_only, the reference CSV, the refused flags, the
-compact point feeds, and the evaluate CLI against the JAX package's from
-the JAX CLI's own seeded init."""
+real-data flags (--info_path, --db_info_path, --tensorboard) on a
+fabricated mini nuScenes, the TensorBoard hook against the JAX package's,
+the compact point feeds, and the evaluate CLI against the JAX package's
+from the JAX CLI's own seeded init."""
 import csv
 import dataclasses
 import json
@@ -215,16 +217,12 @@ def test_the_cli_runs_on_the_card_by_default(tmp_path):
 
 
 @pytest.mark.parametrize("main,extra,item", [
-    (evaluate.main, ["--info_path", "infos.pkl"], "the data pipeline"),
     (evaluate.main, ["--space", "2"], "DDP"),
     (evaluate.main, ["--coordinator_address", "localhost:1",
                      "--num_processes", "2"], "DDP"),
     (evaluate.main, ["--model", "pp_forecast_n3dtf_two_stage"], "long tail"),
-    (train.main, ["--info_path", "infos.pkl"], "the data pipeline"),
-    (train.main, ["--db_info_path", "db.pkl"], "the data pipeline"),
     (train.main, ["--first_stage_checkpoint", "w"], "long tail"),
     (train.main, ["--model", "forecast_n3dtf_two_stage"], "long tail"),
-    (train.main, ["--tensorboard"], "the trainer's extras"),
     (train.main, ["--profile", "trace"], "long tail"),
     (train.main, ["--space", "2"], "DDP"),
     (train.main, ["--num_processes", "4", "--process_id", "1"], "DDP"),
@@ -233,6 +231,128 @@ def test_unported_flags_raise_naming_their_roadmap_item(main, extra, item):
     base = EVAL_ARGS if main is evaluate.main else TRAIN_ARGS
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         main(base + extra)
+
+
+def mini_dataset(root, n_samples=2, model=MODEL):
+    """A mini nuScenes (`tests/test_infos.py::_mk_mini_nusc`: one train
+    and one val scene of `n_samples` keyframes, 3 sweeps) prepared by the
+    port's create_data CLI with the GT database. Returns the train and
+    val infos pkls and the dbinfos pkl."""
+    from futuredet_torch.cli import create_data
+    from tests.test_infos import _mk_mini_nusc
+
+    version = _mk_mini_nusc(root, n_samples=n_samples,
+                            scene_names=("scene-0061", "scene-0103"))
+    tr, va = create_data.main([
+        "nuscenes_data_prep", "--root_path", str(root), "--version",
+        version, "--nsweeps", "3", "--gt_database", "--model", model])
+    return tr, va, str(root / "dbinfos_train_3sweeps_withvelo.pkl")
+
+
+@pytest.fixture(scope="module")
+def real_data(tmp_path_factory):
+    return mini_dataset(tmp_path_factory.mktemp("nusc"))
+
+
+def read_scalars(log_dir):
+    """{tag: [(step, value)]} of the TensorBoard event files in log_dir."""
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+    acc = EventAccumulator(str(log_dir))
+    acc.Reload()
+    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+            for tag in acc.Tags()["scalars"]}
+
+
+@pytest.mark.parametrize("flag", ["evaluate --info_path",
+                                  "train --info_path", "train --db_info_path",
+                                  "train --tensorboard"])
+def test_ported_data_flags_run(real_data, tmp_path, caplog, monkeypatch,
+                               flag):
+    """The flags the port once refused run: evaluation and training of
+    the tiny model on the mini dataset's infos, GT-AUG from a dbinfos pkl
+    named by --db_info_path (with --no_gt_aug, none), and TensorBoard
+    scalars written under {work_dir}/tb."""
+    tr, va, db = real_data
+    monkeypatch.chdir(tmp_path)
+    caplog.set_level(logging.INFO, logger="futuredet_torch")
+    base = ["--model", MODEL, "--tiny", "--device", "cpu"]
+    work = tmp_path / "work"
+    if flag == "evaluate --info_path":
+        s = evaluate.main(base + ["--info_path", va, "--forecast_mode",
+                                  "velocity_dense", "--out",
+                                  str(tmp_path / "m.json")])
+        assert 0 <= s["mean_dist_aps"]["car"] <= 1
+        assert (tmp_path / "m.csv").exists()
+        return
+    argv = base + ["--info_path", tr, "--epochs", "1", "--work_dir",
+                   str(work)]
+    if flag == "train --db_info_path":
+        state = train.main(argv + ["--db_info_path", db])
+        assert "GT-AUG enabled" in caplog.text
+        caplog.clear()
+        train.main(argv + ["--db_info_path", db, "--no_gt_aug"])
+        assert "GT-AUG" not in caplog.text
+    elif flag == "train --tensorboard":
+        state = train.main(argv + ["--tensorboard"])
+        scalars = read_scalars(work / "tb")
+        assert set(scalars) == {"train/loss", "train/grad_norm"}
+        assert [st for st, _ in scalars["train/loss"]] == [state.step]
+    else:
+        # the config's 20-sweep dbinfos name is not there: no GT-AUG
+        state = train.main(argv)
+        assert "GT-AUG disabled: no dbinfos" in caplog.text
+    assert state.step == 2
+    assert "step_2.pt" in os.listdir(work)
+
+
+def test_tensorboard_hook_writes_the_jax_hooks_scalars(tmp_path, caplog):
+    """The same metrics through both hooks (interval 2, five steps): the
+    same tags, steps and values read back from the event files, the
+    partial last window included. Without torch.utils.tensorboard the
+    port's hook warns once and logs nothing."""
+    import builtins
+
+    from futuredet_torch.train.trainer import TensorBoardHook
+    from futuredet_tpu.train.trainer import \
+        TensorBoardHook as JaxTensorBoardHook
+
+    rng = np.random.default_rng(0)
+    steps = [{"loss": float(rng.uniform(1, 2)),
+              "grad_norm": float(rng.uniform(0, 5)),
+              "hm_loss": rng.uniform(0, 1, 7).astype(np.float32)}
+             for _ in range(5)]
+    hook = TensorBoardHook(str(tmp_path / "port"), interval=2)
+    jhook = JaxTensorBoardHook(str(tmp_path / "jax"), interval=2)
+    for i, m in enumerate(steps):
+        hook.after_step(i, None, {k: torch.tensor(v) for k, v in m.items()})
+        jhook.after_step(i, None, {k: jnp.asarray(v) for k, v in m.items()})
+    hook.after_train(None)
+    jhook.after_train(None)
+    got, want = read_scalars(tmp_path / "port"), read_scalars(
+        tmp_path / "jax")
+    assert set(got) == {"train/loss", "train/grad_norm"}
+    assert got == want
+    assert [st for st, _ in got["train/loss"]] == [2, 4, 5]
+
+    real_import = builtins.__import__
+
+    def no_tensorboard(name, *a, **kw):
+        if "tensorboard" in name:
+            raise ImportError("No module named 'tensorboard'")
+        return real_import(name, *a, **kw)
+
+    caplog.set_level(logging.WARNING, logger="futuredet_torch")
+    builtins.__import__ = no_tensorboard
+    try:
+        off = TensorBoardHook(str(tmp_path / "off"), interval=1)
+    finally:
+        builtins.__import__ = real_import
+    assert off.writer is None
+    assert caplog.text.count("TB logging disabled") == 1
+    off.after_step(0, None, {"loss": torch.tensor(1.0)})
+    off.after_train(None)
+    assert not (tmp_path / "off").exists()
 
 
 def test_train_config_keeps_every_field():
