@@ -178,6 +178,32 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       a full keyframe: identical. A pinned batch's copy on the card
       against its pageable copy: identical.
 
+  The single-stage head modes (models/center_head.py, eval/decode.py,
+  models/losses.py, data/targets.py in every mode):
+  23. inference at full width with seeded weights, on phase 4's uniform
+      scene (pillars) or phase 8's uniform_blobs scene (VoxelNet): the
+      named configs forecast_n0, forecast_n3, forecast_n3dtfm (the ego map
+      of rasterize_scene_map), centerpoint_multitask and
+      pp_centerpoint_multitask, then the reverse, sparse, classify and
+      wide_head flags on forecast_n3 and dcn_head on forecast_n0. Counts
+      zeroed just before and read just after: K1 once on G = pseudo-tasks
+      problems (7; 14 sparse; 6 multitask), K2 20 times a VoxelNet scene;
+      every map finite and of the head's widths. Per mode ms a scene
+      (median of HEAD_MODE_REPS after HEAD_MODE_WARMUP, synced) and peak
+      MiB. The named configs and DCN card against the CPU: heatmaps within
+      HM_ATOL, detections matched as in phase 8 (forecast_n0's seven
+      replicated pseudo-tasks equal on the card, the first one matched).
+  24. one full-width B = 1 train step each of forecast_n0, forecast_n3,
+      forecast_n3dtfm and centerpoint_multitask on phase 10's lidar-family
+      scene: 20 K2 forward + 19 K2 dx launches and no K1, metrics finite;
+      ms a step and peak MiB; a centerpoint_multitask step card against
+      the CPU to phase 12's limits.
+  25. cli.evaluate.main on HEAD_MODE_CLI_SCENES synthetic scenes of its
+      own from the seeded init: forecast_n0 --forecast_mode
+      velocity_constant, and centerpoint_multitask with class-labeled
+      metrics over its ten classes; K1 once and K2 20 times a scene, the
+      metrics JSON and CSV under build/chip_smoke/.
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
@@ -280,6 +306,21 @@ NUSC_SWEEP_POINTS, NUSC_OBJECTS, NUSC_EXTENT = 34720, 40, 50.0
 NUSC_NSWEEPS = 20
 NUSC_HOST_REPS = 5        # phase 21.3: median of these
 NUSC_TURN_STEPS = 6       # phase 21.4: trainer steps a prefetch turn
+# the head-mode phases (23-25): the named single-stage configs, then the
+# flag-only heads on forecast_n3's VoxelNet and DCN on forecast_n0, each
+# timed as HEAD_MODE_REPS synced scenes (or steps) after HEAD_MODE_WARMUP
+HEAD_MODES = (("forecast_n0", None), ("forecast_n3", None),
+              ("forecast_n3dtfm", None), ("centerpoint_multitask", None),
+              ("pp_centerpoint_multitask", None), ("forecast_n3", "reverse"),
+              ("forecast_n3", "sparse"), ("forecast_n3", "classify"),
+              ("forecast_n3", "wide_head"), ("forecast_n0", "dcn_head"))
+HEAD_MODES_TRAIN = ("forecast_n0", "forecast_n3", "forecast_n3dtfm",
+                    "centerpoint_multitask")
+HEAD_MODES_CLI = (("forecast_n0", ["--forecast_mode", "velocity_constant"]),
+                  ("centerpoint_multitask", []))
+HEAD_MODE_WARMUP, HEAD_MODE_REPS = 2, 5
+HEAD_MODE_MAP_SEED = 3     # the lidar-family scene whose map phase 23 uses
+HEAD_MODE_CLI_SCENES = 2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the metrics JSON and CSV the evaluate CLI writes in phases 17-19
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -1629,9 +1670,9 @@ def run_evaluate(argv):
     def counted_make(*a, **kw):
         infer = make(*a, **kw)
 
-        def counted(points, valid):
+        def counted(*args):
             b1, b2 = k1.launches, k2.launches
-            out = infer(points, valid)
+            out = infer(*args)
             per_call.append((k1.launches - b1, k2.launches - b2))
             return out
         return counted
@@ -2636,6 +2677,258 @@ def nusc_path(dev, card, work):
     return launches
 
 
+def head_mode_config(name, flag=None):
+    """The named config at full width, with the head flag `flag` set; a
+    pillar config takes phase 2's 150k-point buffer and voxel budget."""
+    import dataclasses
+
+    from futuredet_torch.config import get_config
+    cfg = get_config(name)
+    if flag:
+        cfg = cfg.replace(name=f"{name}+{flag}", model=dataclasses.replace(
+            cfg.model, head=dataclasses.replace(cfg.model.head,
+                                                **{flag: True})))
+    if cfg.model.detector == "pointpillars":
+        cfg = cfg.replace(voxel=dataclasses.replace(
+            cfg.voxel, max_points=MAX_POINTS, max_voxels_eval=30000))
+    return cfg
+
+
+def head_mode_scene(cfg):
+    """Phase 4's uniform scene for a pillar config, phase 8's
+    uniform_blobs scene for a VoxelNet one, and for a bev_map config the
+    `rasterize_scene_map` of a lidar-family scene of the same config (a
+    map of road corridors, not symmetric): (points, valid, map or None)
+    as numpy."""
+    from futuredet_torch.data.synthetic import (make_family_scene,
+                                                rasterize_scene_map)
+    rng = np.random.default_rng(0)
+    pts, valid = (scene_uniform(cfg, rng)
+                  if cfg.model.detector == "pointpillars"
+                  else scene_blobs(cfg, rng))
+    bev = None
+    if cfg.model.head.bev_map:
+        bev = rasterize_scene_map(
+            cfg, make_family_scene(cfg, "lidar", n_clutter=100,
+                                   seed=HEAD_MODE_MAP_SEED))[None, ..., None]
+    return pts, valid, bev
+
+
+def first_pseudo_task(cfg, det):
+    """A timesteps == 1 standard head replicates its one vel map into
+    target_timesteps identical pseudo-tasks: the card's copies must be
+    equal, label apart; returns the first one's slots."""
+    from futuredet_torch.eval.decode import Detections
+    post = cfg.test.nms.post_max_size
+    T = det.valid.shape[1] // post
+    for f in ("boxes", "scores", "valid"):
+        x = getattr(det, f).reshape(det.valid.shape[0], T, post, -1)
+        check(bool((x == x[:, :1]).all()),
+              f"{cfg.name}: replicated pseudo-tasks differ in {f}")
+    return Detections(*(x[:, :post] for x in det))
+
+
+def head_modes_path(dev, card):
+    """Phase 23. Returns per head mode {"k1", "k2", "g"}."""
+    from futuredet_torch.eval.decode import decode_and_nms
+    from futuredet_torch.models.center_head import CenterHead
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.ops import nms as nms_mod
+    from futuredet_torch.ops import pallas_gather
+
+    k1, k2 = nms_mod.rotate_nms_alive, pallas_gather.gather_conv
+    problems = []
+
+    def recorder(b, v, thr):
+        problems.append(b.shape[0])
+        return k1(b, v, thr)
+
+    out = {}
+    for name, flag in HEAD_MODES:
+        cfg = head_mode_config(name, flag)
+        h = cfg.model.head
+        model = build_detector(cfg, device=dev, seed=0)
+        pts, valid, bev = head_mode_scene(cfg)
+        inputs = [torch.from_numpy(pts).to(dev),
+                  torch.from_numpy(valid).to(dev),
+                  None if bev is None else torch.from_numpy(bev).to(dev)]
+
+        def run(m=model, args=inputs):
+            with torch.no_grad():
+                preds = m(*args)
+                return preds, decode_and_nms(cfg, preds)
+
+        # counts zeroed just before the main-path call, read just after
+        problems.clear()
+        nms_mod.rotate_nms_alive = recorder
+        try:
+            k1.launches = k2.launches = 0
+            preds, det = run()
+            torch.cuda.synchronize()
+            n1, n2 = k1.launches, k2.launches
+        finally:
+            nms_mod.rotate_nms_alive = k1
+        multitask = h.multitask
+        pseudo = (len(h.tasks) if multitask else 2 * h.timesteps
+                  if h.sparse else h.target_timesteps)
+        W, H = cfg.feature_map_size
+        check(n1 == 1 and problems == [pseudo],
+              f"{cfg.name}: K1 launched {n1} times on {problems} problems")
+        check(n2 == (20 if cfg.model.detector == "voxelnet" else 0),
+              f"{cfg.name}: K2 launched {n2} times")
+        check(len(preds) == len(h.num_classes), f"{cfg.name}: tasks")
+        for pd, heads in zip(preds, CenterHead.task_heads(h)):
+            for k, (ch, _) in heads:
+                check(tuple(pd[k].shape) == (1, H, W, ch),
+                      f"{cfg.name} {k} shape {tuple(pd[k].shape)}")
+                check(bool(torch.isfinite(pd[k]).all()),
+                      f"{cfg.name} {k} not finite")
+        post = cfg.test.nms.post_max_size
+        check(det.boxes.shape == (1, pseudo * post, 9), det.boxes.shape)
+        check(bool(torch.isfinite(det.boxes).all()
+                   and torch.isfinite(det.scores).all()),
+              f"{cfg.name} detections not finite")
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_host(run, HEAD_MODE_WARMUP, HEAD_MODE_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        line = {"phase": "head_modes", "model": cfg.name, "card": card,
+                "detector": cfg.model.detector,
+                "scene": ("uniform" if cfg.model.detector == "pointpillars"
+                          else "uniform_blobs"),
+                "bev_map": bev is not None, "ms_per_scene": ms,
+                "peak_mib": peak, "k1_launches": n1, "k1_problems_g": pseudo,
+                "k2_launches": n2,
+                "detections_per_pseudo_task": det.valid.reshape(
+                    pseudo, post).sum(-1).tolist(),
+                "hm_max": max(float(torch.sigmoid(p["hm"]).max())
+                              for p in preds),
+                "warmup": HEAD_MODE_WARMUP, "reps": HEAD_MODE_REPS}
+        if flag is None or flag == "dcn_head":
+            # the named configs (and DCN): the same weights on the CPU
+            t0 = time.perf_counter()
+            cpu_model = build_detector(cfg, device="cpu", seed=0)
+            cpu_preds, cpu_det = run(cpu_model, [
+                torch.from_numpy(pts), torch.from_numpy(valid),
+                None if bev is None else torch.from_numpy(bev)])
+            line["cpu_s"] = round(time.perf_counter() - t0, 3)
+            hm_err = max(float((torch.sigmoid(g["hm"]).cpu()
+                                - torch.sigmoid(c["hm"])).abs().max())
+                         for g, c in zip(preds, cpu_preds))
+            check(hm_err <= HM_ATOL, f"{cfg.name}: heatmap card vs CPU "
+                  f"{hm_err}")
+            gd, cd = det, cpu_det
+            if not multitask and h.standard and h.timesteps == 1:
+                gd, cd = first_pseudo_task(cfg, det), first_pseudo_task(
+                    cfg, cpu_det)
+            n_card, n_cpu, let_off = check_detections_match(cfg, gd, cd,
+                                                            hm_err)
+            line.update(hm_max_abs_err=hm_err, hm_atol=HM_ATOL,
+                        detections_card=n_card, detections_cpu=n_cpu,
+                        let_off_at_the_cut=let_off)
+            del cpu_model
+        emit(line)
+        out[cfg.name] = {"k1": n1, "k2": n2, "g": pseudo}
+        del model
+    return out
+
+
+def head_modes_train_path(dev, card):
+    """Phase 24. Returns per config {"k1", "k2_forward", "k2_dx"} of the
+    main-path step."""
+    from futuredet_torch.config import get_config
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.ops import sparse_conv as sc_mod
+    from futuredet_torch.train.step import make_optimizer, train_step
+
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    dx_fn, dx = sc_mod.subm_conv_dx, [0]
+
+    def counting_dx(*args):
+        before = k2.launches
+        res = dx_fn(*args)
+        dx[0] += k2.launches - before
+        return res
+
+    out = {}
+    for name in HEAD_MODES_TRAIN:
+        cfg = get_config(name)
+        batch = train_batch(cfg, TRAIN_SEED, dev, TRAIN_CLUTTER)
+        model = build_detector(cfg, device=dev, seed=0).train()
+        opt = make_optimizer(cfg, model, HEAD_MODE_WARMUP
+                             + HEAD_MODE_REPS + 1)
+        n = [0]
+
+        def one_step():
+            m = train_step(model, opt, batch, n[0])
+            n[0] += 1
+            return m
+
+        sc_mod.subm_conv_dx = counting_dx
+        try:
+            # counts zeroed just before the first step, read just after
+            k1.launches = k2.launches = dx[0] = 0
+            metrics = one_step()
+            torch.cuda.synchronize()
+            counts = {"k1": k1.launches, "k2_forward": k2.launches - dx[0],
+                      "k2_dx": dx[0]}
+        finally:
+            sc_mod.subm_conv_dx = dx_fn
+        m = {k: v.detach().cpu() for k, v in metrics.items()}
+        check(all(bool(torch.isfinite(v).all()) for v in m.values()),
+              f"{name}: train metrics not finite {m}")
+        check(counts == {"k1": 0, "k2_forward": 20, "k2_dx": 19},
+              f"{name}: train step launches {counts}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_host(one_step, HEAD_MODE_WARMUP, HEAD_MODE_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        emit({"phase": "head_modes_train", "model": name, "card": card,
+              "scene": f"lidar family, seed {TRAIN_SEED}",
+              "voxels": list(model.num_voxels), "ms_per_step": ms,
+              "peak_mib": peak, **counts, "loss": float(m["loss"]),
+              "hm_loss": m["hm_loss"].tolist(),
+              "grad_norm": float(m["grad_norm"]),
+              "warmup": HEAD_MODE_WARMUP, "reps": HEAD_MODE_REPS})
+        out[name] = counts
+        del model, opt
+    # one multitask step card against the CPU, to phase 12's limits
+    train_cross_check(get_config("centerpoint_multitask"), dev,
+                      TRAIN_CLUTTER)
+    return out
+
+
+def head_modes_cli_path(dev, card):
+    """Phase 25. Returns per run {"k1", "k2"}."""
+    out = {}
+    for name, extra in HEAD_MODES_CLI:
+        tag = f"{name}_head_mode_eval"
+        argv = ["--model", name, "--device", str(dev), "--synthetic",
+                str(HEAD_MODE_CLI_SCENES), "--checkpoint_dir",
+                os.path.join(OUT_DIR, "no_checkpoint"), "--out",
+                metrics_path(tag), *extra]
+        summary, per_call, total, logs, secs = run_evaluate(argv)
+        check_summary(summary, tag)
+        classes = list(summary["mean_dist_aps"])
+        check(per_call and all(c == per_call[0] for c in per_call),
+              f"{tag}: launches per call {per_call}")
+        n1, n2 = per_call[0]
+        check(n1 == 1 and n2 == 20, f"{tag}: K1 {n1}, K2 {n2} a scene")
+        check(os.path.exists(metrics_path(tag)) and os.path.exists(
+            metrics_path(tag)[:-5] + ".csv"), f"{tag}: metrics not written")
+        if "--forecast_mode" not in extra:
+            from futuredet_torch.config import get_config
+            check(classes == list(get_config(name).data.class_names),
+                  f"{tag}: classes {classes}")
+        emit({"phase": "head_modes_cli", "model": name, "card": card,
+              "argv": argv[:2] + extra, "scenes": len(per_call),
+              "k1_per_scene": n1, "k2_per_scene": n2, "seconds":
+              round(secs, 3), "classes": classes,
+              "mAP": {c: summary["mean_dist_aps"][c] for c in classes},
+              "metrics": os.path.relpath(metrics_path(tag), ROOT)})
+        out[tag] = {"k1": total[0], "k2": total[1]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2686,9 +2979,16 @@ def main() -> int:
                                    VOX_NAME: vox_ckpt})
         nusc = nusc_path(dev, card, work)
     metrics_engine_path(dev, card)
+    modes = head_modes_path(dev, card)
+    modes_train = head_modes_train_path(dev, card)
+    modes_cli = head_modes_cli_path(dev, card)
 
     evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta,
-             **nusc}
+             **nusc, **modes_cli,
+             **{f"{n}_head_mode": v for n, v in modes.items()},
+             **{f"{n}_head_mode_train": {"k1": v["k1"], "k2": v["k2_forward"]
+                                         + v["k2_dx"]}
+                for n, v in modes_train.items()}}
     print(card, flush=True)
     k2 = vox["k2"]
     emit({"kernels": [{
@@ -2706,6 +3006,7 @@ def main() -> int:
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "dense_cluster_ms": k1["dense_ms"],
+        "problems_g_by_head_mode": {n: v["g"] for n, v in modes.items()},
         "library_ms": None}, {
         "name": "K2 sparse gather-conv",
         "route": "cuda",

@@ -124,8 +124,8 @@ def refuse_unported(args, cfg) -> None:
             "(ROADMAP.md, queue 1: DDP)")
     if cfg.model.two_stage_refine:
         raise NotImplementedError(
-            "two-stage configs are not ported yet (ROADMAP.md, queue 1: "
-            "long tail, models/two_stage.py)")
+            "two-stage configs are not ported yet (ROADMAP.md, queue 1, "
+            "item 1: two-stage, models/two_stage.py)")
 
 
 def synthetic_batches(cfg, n: int, batch_size: int, seed: int):
@@ -171,7 +171,8 @@ def restore_model(cfg, args, dev):
 
 
 def make_infer(cfg, model, tta: str):
-    """points, valid on the device -> Detections on the device."""
+    """points, valid (and a bev_map config's ego map) on the device ->
+    Detections on the device."""
     import torch
 
     from ..data.feed import unpack_points
@@ -181,11 +182,11 @@ def make_infer(cfg, model, tta: str):
     tta_fn = {"map": infer_double_flip_map, "box": infer_double_flip}.get(tta)
 
     @torch.no_grad()
-    def infer(points, valid):
+    def infer(points, valid, bev_map=None):
         points = unpack_points(points)
         if tta_fn is not None:
             return tta_fn(cfg, model, points, valid)
-        return decode_and_nms(cfg, model(points, valid))
+        return decode_and_nms(cfg, model(points, valid, bev_map))
     return infer
 
 
@@ -212,7 +213,9 @@ def main(argv=None):
     from ..data.pipeline import batches_from_dataset, info_dataset
     from ..data.prefetch import prefetch
     from ..eval.evaluator import (detections_to_predictions,
-                                  gt_records_from_arrays, host_detections)
+                                  gt_records_from_arrays,
+                                  gt_records_multiclass, host_detections,
+                                  multitask_detection_records)
     from ..eval.metrics import evaluate_forecasts
     from ..models.detector import resolve_device
 
@@ -223,7 +226,16 @@ def main(argv=None):
     if args.tiny:
         cfg = tiny_variant(cfg)
     refuse_unported(args, cfg)
+    if args.tta != "none" and cfg.model.head.bev_map:
+        # the JAX package's TTA forward takes no map either
+        # (futuredet_tpu/cli/evaluate.py:197-204)
+        raise SystemExit("--tta is not supported for bev_map configs: the "
+                         "flipped forwards take no ego map")
     classname = cfg.data.class_names[0]
+    # multitask class groups are detection-only: labels are global class
+    # ids and there is no forecast linking (classic CenterPoint evaluation)
+    multitask = cfg.model.head.multitask
+    eval_classes = list(cfg.data.class_names) if multitask else [classname]
 
     if args.eval_only:
         # re-scoring a saved detections pkl needs no model or checkpoint
@@ -261,13 +273,21 @@ def main(argv=None):
         det = host_detections(det)
         if args.extractBox:
             saved.append((det, gt, tokens))
-        p = detections_to_predictions(
-            cfg, det, tokens, forecast_mode=args.forecast_mode,
-            classname=classname, rerank=args.rerank, nogroup=args.nogroup,
-            jitter=args.jitter, jitter_K=args.K, jitter_C=args.C,
-            prototypes=prototypes, sample_times=gt.get("times"))
-        g = gt_records_from_arrays(gt["boxes"], gt["valid"], gt.get("traj"),
-                                   tokens, classname, attrs=gt.get("attr"))
+        if multitask:
+            p = multitask_detection_records(cfg, det, tokens)
+            g = gt_records_multiclass(gt["boxes"], gt["valid"],
+                                      gt["classes"], tokens,
+                                      cfg.data.class_names)
+        else:
+            p = detections_to_predictions(
+                cfg, det, tokens, forecast_mode=args.forecast_mode,
+                classname=classname, rerank=args.rerank,
+                nogroup=args.nogroup, jitter=args.jitter, jitter_K=args.K,
+                jitter_C=args.C, prototypes=prototypes,
+                sample_times=gt.get("times"))
+            g = gt_records_from_arrays(gt["boxes"], gt["valid"],
+                                       gt.get("traj"), tokens, classname,
+                                       attrs=gt.get("attr"))
         for x in p:
             x.yaw = float(-x.yaw - np.pi / 2)
         preds.extend(p)
@@ -284,13 +304,16 @@ def main(argv=None):
         infer = make_infer(cfg, model, args.tta)
 
         def dev_slice(b):
-            # the wire format of --feed_dtype, decoded on the device
+            # the wire format of --feed_dtype, decoded on the device; the
+            # ego map of a bev_map config beside it
             pts = torch.from_numpy(pack_points(b["points"].numpy(),
                                                args.feed_dtype))
             if on_card:
                 pts = pts.pin_memory()
+            bev = b.get("bev_map")
             return (pts.to(dev, non_blocking=True),
-                    b["points_valid"].to(dev, non_blocking=True))
+                    b["points_valid"].to(dev, non_blocking=True),
+                    None if bev is None else bev.to(dev, non_blocking=True))
 
         def to_host(det):
             """The detections' copy to pinned host memory, queued behind
@@ -361,7 +384,7 @@ def main(argv=None):
             log.info("detections saved to %s", pred_path)
 
     results = evaluate_forecasts(
-        preds, gts, [classname], tp_pct=args.tp_pct,
+        preds, gts, eval_classes, tp_pct=args.tp_pct,
         cohort_analysis=args.cohort_analysis, topk=args.K,
         static_only=args.static_only,
         association_oracle=args.association_oracle)

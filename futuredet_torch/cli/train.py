@@ -89,7 +89,8 @@ def refuse_unported(args, cfg) -> None:
     if args.first_stage_checkpoint or cfg.model.two_stage_refine:
         raise NotImplementedError(
             "two-stage configs and --first_stage_checkpoint are not ported "
-            "yet (ROADMAP.md, queue 1: long tail, models/two_stage.py)")
+            "yet (ROADMAP.md, queue 1, item 1: two-stage, "
+            "models/two_stage.py)")
     if args.profile:
         raise NotImplementedError(
             "--profile: utils/profiling.py is not ported yet (ROADMAP.md, "
@@ -117,26 +118,31 @@ def train_config(cfg, args, n_devices: int = 1):
 
 
 def make_val_fn(cfg, n: int, device):
-    """Per-epoch validation (ref Trainer.val): inference, linking and the
-    joint metrics on a fixed synthetic split (seed 10 000), as the JAX CLI
-    runs it (its multitask branch waits for a multitask decode). Returns
-    state -> {"mAP", "mFAP"}."""
+    """Per-epoch validation (ref Trainer.val) on a fixed synthetic split
+    (seed 10 000), as the JAX CLI runs it: inference, then class-labeled
+    detection metrics for multitask class groups, or linking
+    (velocity_constant for standard heads, velocity_dense otherwise) and
+    the joint metrics. Returns state -> {"mAP", "mFAP"}."""
     from ..data.synthetic import make_batch
     from ..eval.decode import decode_and_nms
-    from ..eval.evaluator import evaluate_detections
+    from ..eval.evaluator import (evaluate_detections,
+                                  evaluate_detections_multitask)
 
     vb = make_batch(cfg, max(n, 1), seed=10_000, clutter_mode="lidar",
                     device=device)
     tokens = [f"v{i}" for i in range(vb["points"].shape[0])]
-    mode = ("velocity_constant" if cfg.model.head.standard
-            else "velocity_dense")
+    h = cfg.model.head
+    mode = "velocity_constant" if h.standard else "velocity_dense"
 
     def val_fn(state):
-        det = decode_and_nms(cfg, state.model(vb["points"],
-                                              vb["points_valid"]))
-        res = evaluate_detections(cfg, det, vb["gt"], tokens,
-                                  forecast_mode=mode,
-                                  classname=cfg.data.class_names[0])
+        det = decode_and_nms(cfg, state.model(
+            vb["points"], vb["points_valid"], vb.get("bev_map")))
+        if h.multitask:
+            res = evaluate_detections_multitask(cfg, det, vb["gt"], tokens)
+        else:
+            res = evaluate_detections(cfg, det, vb["gt"], tokens,
+                                      forecast_mode=mode,
+                                      classname=cfg.data.class_names[0])
         return {"mAP": round(float(np.mean(
                     list(res.mean_dist_aps.values()))), 4),
                 "mFAP": round(float(np.mean(

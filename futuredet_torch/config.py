@@ -89,6 +89,14 @@ class HeadConfig:
                     or self.classify or self.wide_head)
 
     @property
+    def multitask(self) -> bool:
+        """Classic CenterPoint class groups: a standard head of several
+        tasks, one SepHead per group, detections labeled with global class
+        ids and scored without forecast linking. (The port's own property;
+        the JAX package spells it out where it needs it.)"""
+        return self.standard and len(self.tasks) > 1
+
+    @property
     def num_classes(self) -> Tuple[int, ...]:
         """Per-task heatmap channel counts (ref: center_head.py:321-334)."""
         if self.sparse:

@@ -305,6 +305,25 @@ def make_family_scene(cfg: ExperimentConfig, family: str, n_clutter: int,
                       clutter_mode=mode)
 
 
+def rasterize_scene_map(cfg: ExperimentConfig, scene: Scene,
+                        road_halfwidth: float = 3.0) -> np.ndarray:
+    """Synthetic drivable-area raster (H, W) float32: cells within
+    `road_halfwidth` metres of any valid object's centre at any timestep
+    are road (1.0). Canvas orientation: row = y bin, column = x bin, as the
+    targets' heatmaps."""
+    W, H = cfg.feature_map_size
+    pc = cfg.voxel.pc_range
+    sx = (pc[3] - pc[0]) / W
+    sy = (pc[4] - pc[1]) / H
+    xs = pc[0] + (np.arange(W) + 0.5) * sx
+    ys = pc[1] + (np.arange(H) + 0.5) * sy
+    gx, gy = np.meshgrid(xs, ys)
+    out = np.zeros((H, W), np.float32)
+    for cx, cy in scene.gt_boxes[scene.gt_valid][:, :2]:
+        out[(gx - cx) ** 2 + (gy - cy) ** 2 <= road_halfwidth ** 2] = 1.0
+    return out
+
+
 def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
                device=None, **kw) -> Dict:
     """`batch_size` scenes (seeds seed, seed + 1, ...; `make_scene`'s
@@ -313,7 +332,8 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
     {"gt_boxes" (B, T, M, 12), "gt_classes" (B, T, M), "gt_valid"
     (B, T, M), "traj_classes" (B, M)}}, and the same GT as host numpy for
     the evaluator under "gt": {"boxes", "classes", "valid", "traj"}, as the
-    JAX package's `make_batch` gives it."""
+    JAX package's `make_batch` gives it; a bev_map config also gets
+    "bev_map" (B, H, W, 1), each scene's `rasterize_scene_map`."""
     scenes = [make_scene(cfg, seed=seed + i, **kw) for i in range(batch_size)]
 
     def host(field):
@@ -322,10 +342,15 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
     def stack(field):
         return torch.from_numpy(host(field)).to(device)
 
-    return {"points": stack("points"), "points_valid": stack("points_valid"),
-            "targets_raw": {"gt_boxes": stack("gt_boxes"),
-                            "gt_classes": stack("gt_classes"),
-                            "gt_valid": stack("gt_valid"),
-                            "traj_classes": stack("traj_classes")},
-            "gt": {"boxes": host("gt_boxes"), "classes": host("gt_classes"),
-                   "valid": host("gt_valid"), "traj": host("traj_classes")}}
+    batch = {"points": stack("points"), "points_valid": stack("points_valid"),
+             "targets_raw": {"gt_boxes": stack("gt_boxes"),
+                             "gt_classes": stack("gt_classes"),
+                             "gt_valid": stack("gt_valid"),
+                             "traj_classes": stack("traj_classes")},
+             "gt": {"boxes": host("gt_boxes"), "classes": host("gt_classes"),
+                    "valid": host("gt_valid"), "traj": host("traj_classes")}}
+    if cfg.model.head.bev_map:
+        batch["bev_map"] = torch.from_numpy(np.stack(
+            [rasterize_scene_map(cfg, s)[..., None] for s in scenes])
+        ).to(device)
+    return batch

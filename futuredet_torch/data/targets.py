@@ -1,14 +1,17 @@
 """CenterNet target assignment, on the device.
 
-Port of `futuredet_tpu/data/targets.py:32-201` (reference AssignLabel,
+Port of `futuredet_tpu/data/targets.py:32-205` (reference AssignLabel,
 `det3d/datasets/pipelines/preprocess.py:336-910`): per object a radius,
 a gaussian on the heatmap (`core/gaussian.py`) and its anno_box, ind, mask
 and cat rows, for all timesteps and a whole batch at once.
 
-Three target families (ref :568, :733, :897):
+Target families (ref :568, :733, :897):
   standard    per-timestep boxes, class = object class           (C = K)
   trajectory  class = static / linear / nonlinear                (C = 3)
   forecast    every timestep's boxes in every map, class = t + 1 (C = T)
+  multitask   class groups of classic CenterPoint: the leading axis is
+              the task, t = 0's boxes, class = the index within the task
+              (C = the widest group, zero-padded)
 
 GT in: gt_boxes (B, T, M, 12) [x, y, z, w, l, h, vx, vy, rvx, rvy, rot,
 rrot], gt_classes (B, T, M) 1-based, gt_valid (B, T, M) bool, traj_classes
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from ..config import ExperimentConfig
 from ..core.boxes import limit_period
@@ -80,21 +84,49 @@ def _assign(cfg: ExperimentConfig, boxes, classes, valid, num_classes,
             "ind": ind, "mask": ok, "cat": torch.where(ok, cls0, zero)}
 
 
+def _assign_multitask(cfg: ExperimentConfig, boxes, classes, valid
+                      ) -> Dict[str, torch.Tensor]:
+    """Multitask family (`futuredet_tpu/data/targets.py::
+    _assign_multitask_targets`): per class group the t = 0 objects of its
+    classes, stacked over tasks on the leading axis, heatmaps zero-padded
+    to the widest group."""
+    tasks = cfg.model.head.tasks
+    names = list(cfg.data.class_names)
+    cmax = max(len(t) for t in tasks)
+    cls0 = classes[:, :1].to(torch.int64).clamp(0, len(names))
+    fams = []
+    for task in tasks:
+        # global 1-based class id -> within-task 1-based id (0: not ours),
+        # by comparisons on the device (a lookup table made on the host
+        # would be a synchronous copy to the card)
+        tcls = torch.zeros_like(cls0)
+        for j, n in enumerate(task):
+            ours = cls0 == names.index(n) + 1
+            tcls = tcls + ours.to(cls0.dtype) * (j + 1)
+        out = _assign(cfg, boxes[:, :1], tcls, valid[:, :1] & (tcls > 0),
+                      len(task))
+        out["hm"] = F.pad(out["hm"], (0, cmax - len(task)))
+        fams.append(out)
+    return {k: torch.cat([f[k] for f in fams], 1) for k in fams[0]}
+
+
 def build_targets_batch(cfg: ExperimentConfig, raw: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
     """raw: {"gt_boxes" (B, T, M, 12), "gt_classes" (B, T, M), "gt_valid"
     (B, T, M), "traj_classes" (B, M)} on the device -> the target dict of
     `futuredet_tpu/data/targets.py::build_targets_batch`: the standard
-    family, the trajectory and forecast families (suffixed keys) under a
-    trajectory sampler, and the t = 0 gt_boxes / gt_valid."""
+    family (the multitask family for class groups), the trajectory and
+    forecast families (suffixed keys) under a trajectory sampler, and the
+    t = 0 gt_boxes / gt_valid."""
     h = cfg.model.head
-    if h.standard and len(h.tasks) > 1:
-        raise NotImplementedError(
-            "multi-task class groups (the multitask target family) are not "
-            "ported yet (ROADMAP.md, queue 1: other head modes)")
     boxes, valid = raw["gt_boxes"], raw["gt_valid"]
-    out = _assign(cfg, boxes, raw["gt_classes"], valid,
-                  max(1, len(cfg.data.class_names)))
+    if h.multitask:
+        if h.timesteps != 1:
+            raise ValueError("multi-task class groups take timesteps == 1")
+        out = _assign_multitask(cfg, boxes, raw["gt_classes"], valid)
+    else:
+        out = _assign(cfg, boxes, raw["gt_classes"], valid,
+                      max(1, len(cfg.data.class_names)))
     if cfg.assigner.sampler_type != "standard" \
             and raw.get("traj_classes") is not None:
         cls = raw["traj_classes"][:, None, :].expand_as(valid)

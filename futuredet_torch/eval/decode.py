@@ -1,21 +1,28 @@
 """Heatmap -> boxes decode + per-timestep NMS, on the device of the preds.
 
 Port of `futuredet_tpu/eval/decode.py` (reference `CenterHead.predict` +
-`post_processing`, center_head.py:541-747) for the dense forecast mode:
+`post_processing`, center_head.py:541-747):
 
-  1. one head per future timestep is already one pseudo-task    (:559-607)
+  1. expand the head outputs into pseudo-tasks (standard / reverse: slice
+     the widened vel map or replicate it; dense: one head per timestep
+     already; sparse: forward + reverse; classify: max over the 3
+     trajectory classes; wide: slice the heatmap channels; multitask: one
+     per class group)                                           (:559-607)
   2. decode each dict from the heatmap grid                     (:621-666)
   3. score/range mask + rotated NMS per pseudo-task             (:698-747)
-  4. concatenate with label := pseudo-task index (== timestep)  (:675-695)
+  4. concatenate with label := pseudo-task index (== timestep), or the
+     global class id for multitask class groups                (:675-695)
 
 Every pseudo-task yields exactly `post_max` detection slots with a
-validity mask. The T x B rotated-NMS problems go to kernel K1 in one launch.
+validity mask. The pseudo-tasks x B rotated-NMS problems go to kernel K1
+in one launch.
 """
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import ExperimentConfig
 from ..ops.nms import circle_nms, rotate_nms
@@ -25,7 +32,9 @@ class Detections(NamedTuple):
     """Fixed-shape detection set per sample.
 
     boxes: (B, N, 9) [x, y, z, w, l, h, vx, vy, rot]
-    scores/labels/valid: (B, N); label == pseudo-timestep (0..T-1)
+    scores/labels/valid: (B, N); label == pseudo-timestep (0..T-1) for
+    forecast modes, or the global class id for multitask class groups
+    (len(tasks) > 1, classic CenterPoint)
     """
     boxes: torch.Tensor
     scores: torch.Tensor
@@ -35,13 +44,29 @@ class Detections(NamedTuple):
 
 def expand_pseudo_tasks(cfg: ExperimentConfig,
                         preds: List[Dict[str, torch.Tensor]]):
-    """Dense mode: one head per timestep is one pseudo-task already."""
+    """The reference's per-mode expansion into pseudo-task dicts (ref
+    :557-607)."""
     h = cfg.model.head
-    if not h.dense:
-        raise NotImplementedError(
-            "only the dense forecast head mode is ported (ROADMAP.md, "
-            "queue 1: other head modes)")
-    return list(preds)
+    if h.multitask:
+        # multitask class groups: one pseudo-task per SepHead; labels
+        # become global class ids in decode_and_nms
+        return list(preds)
+    if h.standard or h.reverse:
+        pd = preds[0]
+        vels = [pd["vel"][..., 2 * i:2 * i + 2] for i in range(h.timesteps)]
+        if h.timesteps == 1:
+            vels = h.target_timesteps * vels
+        return [{**pd, "vel": v} for v in vels]
+    if h.sparse:
+        return [{**pd, "vel": pd["vel"][..., 2 * i:2 * i + 2]}
+                for pd in preds[:2] for i in range(h.timesteps)]
+    if h.classify:
+        return [{**pd, "hm": pd["hm"].amax(-1, keepdim=True)} for pd in preds]
+    if h.wide_head:
+        pd = preds[0]
+        return [{**pd, "hm": pd["hm"][..., i:i + 1]}
+                for i in range(h.timesteps)]
+    return list(preds)          # dense: one head per timestep already
 
 
 def decode_single(pd: Dict[str, torch.Tensor], cfg: ExperimentConfig):
@@ -73,19 +98,34 @@ def decode_single(pd: Dict[str, torch.Tensor], cfg: ExperimentConfig):
 
 def decode_and_nms(cfg: ExperimentConfig,
                    preds: List[Dict[str, torch.Tensor]]) -> Detections:
-    """Full predict path. Returns Detections with N = T * post_max and
-    labels == pseudo-timestep index (reference label offsetting :686-690)."""
+    """Full predict path. Returns Detections with N = T * post_max (T
+    pseudo-tasks) and labels == pseudo-timestep index (reference label
+    offsetting :686-690), or global class ids for multitask."""
     pseudo = expand_pseudo_tasks(cfg, preds)
     tc = cfg.test
+    h = cfg.model.head
     T = len(pseudo)
     post = tc.nms.post_max_size
 
     decs = [decode_single(pd, cfg) for pd in pseudo]
+    cmax = max(d[1].shape[-1] for d in decs)
     boxes = torch.stack([d[0] for d in decs])            # (T, B, HW, 9)
-    scores = torch.stack([d[1] for d in decs]).amax(-1)  # (T, B, HW)
+    # zero pad (of the narrower multitask groups) after the sigmoid (> 0):
+    # it never wins max or argmax
+    hm = torch.stack([d[1] if d[1].shape[-1] == cmax
+                      else F.pad(d[1], (0, cmax - d[1].shape[-1]))
+                      for d in decs])                    # (T, B, HW, Cmax)
+    scores = hm.amax(-1)                                 # (T, B, HW)
     _, B, HW, _ = boxes.shape
-    labels = torch.arange(T, device=boxes.device)[:, None, None].expand(
-        T, B, HW)
+    if h.multitask:
+        # global class id: the task's channel offset + the cell's argmax
+        # (offsets added as Python ints: a tensor of them made on the host
+        # would be a synchronous copy to the card)
+        offs = [sum(len(t) for t in h.tasks[:i]) for i in range(T)]
+        labels = torch.stack([hm[i].argmax(-1) + offs[i] for i in range(T)])
+    else:
+        labels = torch.arange(T, device=boxes.device)[:, None, None].expand(
+            T, B, HW)
     rng = torch.tensor(tc.post_center_limit_range, device=boxes.device)
     in_range = ((boxes[..., :3] >= rng[:3]).all(-1)
                 & (boxes[..., :3] <= rng[3:]).all(-1))

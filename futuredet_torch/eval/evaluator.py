@@ -72,7 +72,7 @@ def detections_to_predictions(cfg: ExperimentConfig, det: Detections,
     (the reference computes them from sample timestamps, get_time
     nuscenes.py:57-62); defaults to the nominal 2 Hz spacing."""
     h = cfg.model.head
-    if h.standard and len(h.tasks) > 1:
+    if h.multitask:
         raise NotImplementedError(
             "multi-task (class-group) configs emit GLOBAL CLASS ids as "
             "labels (decode.py), not pseudo-timestep indices — forecast "

@@ -172,6 +172,15 @@ def _flatten_for_native(units, gts: List[GTRecord], gt_index):
             np.stack([p.vel for p in members]), np.float32)
         mem_attr = np.ascontiguousarray(
             np.array([attr_id(p.attr) for p in members], np.int32))
+        if gt_centers.shape[1] == 1 < mem_centers.shape[1]:
+            # one-timestep GT (the GT of a timesteps == 1 config, e.g.
+            # forecast_n0) against linked T-step predictions: the numpy
+            # matcher broadcasts the GT's one position over the horizon,
+            # and so does this. (The JAX package's native path reads the
+            # members with the GT's stride here and disagrees with its own
+            # numpy matcher.)
+            gt_centers = np.ascontiguousarray(np.repeat(
+                gt_centers, mem_centers.shape[1], axis=1))
     else:
         T = gt_centers.shape[1]
         mem_sample = np.zeros((0,), np.int32)

@@ -1,10 +1,16 @@
-"""CenterHead in dense + forecast_feature mode.
+"""CenterHead in every single-stage mode.
 
 Port of `futuredet_tpu/models/center_head.py` (reference
-`det3d/models/bbox_heads/center_head.py:81-390`): shared_conv (3x3+BN+ReLU),
-then one SepHead per task. In dense mode there is one SepHead per future
-timestep; with forecast_feature head i>0 reads concat(shared features,
-head i-1's forecast features).
+`det3d/models/bbox_heads/center_head.py:40-390`): shared_conv (3x3 + BN +
+ReLU), with `bev_map` the ego map's three ConvBNReLU added to it, then one
+SepHead per task. The tasks and their branch widths follow the mode
+(`CenterHead.task_heads`): standard and reverse heads widen vel / rvel by
+`timesteps`; dense has one single-class head per future timestep (with
+`forecast_feature`, head i > 0 reads concat(shared features, head i-1's
+forecast features)); sparse a forward and a reverse head; classify one
+3-class head per timestep; wide one 7-class head on a 512-channel share;
+multitask one head per class group. `dcn_head` replaces each SepHead by a
+DCNSepHead (deformable feature adaption, `ops/deform.py`).
 
 Each SepHead branch is its own conv tower, as in the reference. The JAX
 package fuses branches into one wide conv on the TPU; that is a TPU
@@ -13,29 +19,33 @@ formulation over the same parameters and is not ported. Convs run NCHW;
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import HeadConfig
+from ..ops.deform import deform_conv2d
 from .layers import ConvBNReLU, conv_bn_relu
+
+Heads = Tuple[Tuple[str, Tuple[int, int]], ...]
 
 
 class SepHead(nn.Module):
     """Per-task head: one small conv stack per regression target. Branch
     `name` is [conv(3j), bn(3j+1), relu(3j+2)] x (num_conv-1) + final conv,
     and `forecast_conv` is [conv(0), bn(1), relu, conv(3), bn(4), relu]:
-    the reference key layout."""
+    the reference key layout. The branch convs are `head_conv` wide, or
+    `in_channels` wide with `wide_head` (ref center_head.py:92)."""
 
-    def __init__(self, in_channels: int,
-                 heads: Tuple[Tuple[str, Tuple[int, int]], ...],
-                 head_conv: int = 64, final_kernel: int = 3,
-                 init_bias: float = -2.19, forecast_feature: bool = False):
+    def __init__(self, in_channels: int, heads: Heads, head_conv: int = 64,
+                 final_kernel: int = 3, init_bias: float = -2.19,
+                 forecast_feature: bool = False, wide_head: bool = False):
         super().__init__()
         self.head_names = [h for h, _ in heads]
         self.forecast_feature = forecast_feature
         self.init_bias = init_bias
+        branch_conv = in_channels if wide_head else head_conv
         cin = in_channels
         if forecast_feature:
             self.forecast_conv = nn.Sequential(
@@ -47,15 +57,15 @@ class SepHead(nn.Module):
             layers = []
             c = cin
             for _ in range(num_conv - 1):
-                layers += conv_bn_relu(c, head_conv, final_kernel, 1,
+                layers += conv_bn_relu(c, branch_conv, final_kernel, 1,
                                        bias=True)
-                c = head_conv
+                c = branch_conv
             layers.append(nn.Conv2d(c, classes, final_kernel, padding=p))
             self.add_module(name, nn.Sequential(*layers))
-        self.reset_hm_bias()
 
     @torch.no_grad()
-    def reset_hm_bias(self) -> None:
+    def reset_init(self) -> None:
+        """The heatmap's final bias at init_bias (ref :159)."""
         if "hm" in self.head_names:
             self.hm[-1].bias.fill_(self.init_bias)
 
@@ -69,39 +79,138 @@ class SepHead(nn.Module):
         return out
 
 
+class DeformConv2d(nn.Conv2d):
+    """A 3x3 deformable conv without bias (ref DeformConv): Conv2d's
+    weight (Cout, Cin, 3, 3) and key, `forward(x, offsets)`."""
+
+    def __init__(self, cin: int, cout: int, deformable_groups: int):
+        super().__init__(cin, cout, 3, padding=1, bias=False)
+        self.deformable_groups = deformable_groups
+
+    def forward(self, x: torch.Tensor, offsets: torch.Tensor
+                ) -> torch.Tensor:
+        return deform_conv2d(x, offsets, self.weight, self.deformable_groups)
+
+
+class FeatureAdaption(nn.Module):
+    """DCN v1 feature adaption (ref center_head.py:40-79): a zero-init 1x1
+    conv predicts each tap's (dy, dx) for a 3x3 deformable conv, then ReLU.
+    """
+
+    def __init__(self, cin: int, cout: int, deformable_groups: int = 4):
+        super().__init__()
+        self.conv_offset = nn.Conv2d(cin, deformable_groups * 2 * 9, 1)
+        self.conv_adaption = DeformConv2d(cin, cout, deformable_groups)
+
+    @torch.no_grad()
+    def reset_init(self) -> None:
+        self.conv_offset.weight.zero_()
+        self.conv_offset.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.conv_adaption(x, self.conv_offset(x)))
+
+
+class DCNSepHead(nn.Module):
+    """SepHead with deformable feature adaption (ref center_head.py:176-228):
+    `hm` from `cls_head` ([conv(0), bn(1), relu, conv(3)]) on the cls
+    adaption, every other branch from `task_head`, a SepHead on the
+    regression adaption."""
+
+    def __init__(self, in_channels: int, heads: Heads, num_cls: int,
+                 head_conv: int = 64, final_kernel: int = 3,
+                 init_bias: float = -2.19):
+        super().__init__()
+        self.init_bias = init_bias
+        self.feature_adapt_cls = FeatureAdaption(in_channels, in_channels)
+        self.feature_adapt_reg = FeatureAdaption(in_channels, in_channels)
+        self.cls_head = nn.Sequential(
+            *conv_bn_relu(in_channels, head_conv, 3, 1, bias=True),
+            nn.Conv2d(head_conv, num_cls, 3, padding=1))
+        self.task_head = SepHead(in_channels, heads, head_conv=head_conv,
+                                 final_kernel=final_kernel,
+                                 init_bias=init_bias)
+
+    @torch.no_grad()
+    def reset_init(self) -> None:
+        self.cls_head[-1].bias.fill_(self.init_bias)
+        self.feature_adapt_cls.reset_init()
+        self.feature_adapt_reg.reset_init()
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self.task_head(self.feature_adapt_reg(x))
+        out["hm"] = self.cls_head(self.feature_adapt_cls(x))
+        return out
+
+
 class CenterHead(nn.Module):
     def __init__(self, cfg: HeadConfig):
         super().__init__()
-        for flag in ("bev_map", "two_stage", "dcn_head"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"CenterHead {flag} mode is not ported yet (ROADMAP.md, "
-                    "queue 1: other head modes)")
-        if not cfg.dense:
+        if cfg.two_stage:
             raise NotImplementedError(
-                "only the dense forecast head is ported yet (ROADMAP.md, "
-                "queue 1: other head modes)")
+                "CenterHead two_stage mode (two_stage_forecast_conv) is not "
+                "ported yet (ROADMAP.md, queue 1, item 1: two-stage)")
+        if cfg.dcn_head and cfg.forecast_feature:
+            raise ValueError("dcn_head gives no forecast features: it takes "
+                             "forecast_feature=False")
         self.cfg = cfg
-        share = cfg.share_conv_channel
+        share = cfg.effective_share_channel
         self.shared_conv = ConvBNReLU(cfg.in_channels, share, 3, 1,
                                       bias=True)
-        # dense: one single-class head per timestep (ref :321-334)
-        heads = tuple(cfg.common_heads) + (("hm", (1, cfg.num_hm_conv)),)
+        if cfg.bev_map:
+            # ref :338-343: 1 -> 16 -> 32 -> share on the (B, H, W, 1) map
+            self.bev_conv = nn.Sequential(
+                *conv_bn_relu(1, 16, 3, 1, bias=True),
+                *conv_bn_relu(16, 32, 3, 1, bias=True),
+                *conv_bn_relu(32, share, 3, 1, bias=True))
         tasks = []
-        for i in range(cfg.timesteps):
+        for i, heads in enumerate(self.task_heads(cfg)):
             in_ch = 2 * share if (i != 0 and cfg.forecast_feature) else share
-            tasks.append(SepHead(in_ch, heads, head_conv=share,
-                                 final_kernel=3, init_bias=cfg.init_bias,
-                                 forecast_feature=cfg.forecast_feature))
+            if cfg.dcn_head:
+                tasks.append(DCNSepHead(
+                    in_ch, tuple(h for h in heads if h[0] != "hm"),
+                    cfg.num_classes[i], head_conv=share,
+                    init_bias=cfg.init_bias))
+            else:
+                tasks.append(SepHead(
+                    in_ch, heads, head_conv=share, init_bias=cfg.init_bias,
+                    forecast_feature=cfg.forecast_feature,
+                    wide_head=cfg.wide_head))
         self.tasks = nn.ModuleList(tasks)
 
-    def reset_hm_bias(self) -> None:
-        for t in self.tasks:
-            t.reset_hm_bias()
+    @staticmethod
+    def task_heads(cfg: HeadConfig) -> List[Heads]:
+        """Per-task branch specs (`futuredet_tpu/models/center_head.py::
+        CenterHead._task_heads`, ref :351-359): vel / rvel widened by
+        `timesteps` unless dense, classify or wide; hm as wide as the task's
+        classes."""
+        widen = not (cfg.dense or cfg.classify or cfg.wide_head)
+        specs = []
+        for num_cls in cfg.num_classes:
+            heads = tuple(
+                (name, (ch * cfg.timesteps if widen and name in ("vel", "rvel")
+                        else ch, nconv))
+                for name, (ch, nconv) in cfg.common_heads)
+            specs.append(heads + (("hm", (num_cls, cfg.num_hm_conv)),))
+        return specs
 
-    def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
-        """x (B, C, H, W) -> per task a dict of (B, H, W, c) maps."""
+    def reset_init(self) -> None:
+        """The non-default inits after `init_weights_`: each heatmap's final
+        bias at init_bias, the DCN offset convs at zero."""
+        for t in self.tasks:
+            t.reset_init()
+
+    def forward(self, x: torch.Tensor, bev_map: Optional[torch.Tensor] = None
+                ) -> List[Dict[str, torch.Tensor]]:
+        """x (B, C, H, W), bev_map (B, H, W, 1) in canvas orientation (row =
+        y bin) when the config has one -> per task a dict of (B, H, W, c)
+        maps."""
         x = self.shared_conv(x)
+        if self.cfg.bev_map:
+            if bev_map is None:
+                raise ValueError("this head is bev_map-conditioned: pass "
+                                 "the (B, H, W, 1) ego map")
+            x = x + self.bev_conv(bev_map.permute(0, 3, 1, 2).to(x.dtype))
         rets: List[Dict[str, torch.Tensor]] = []
         for i, task in enumerate(self.tasks):
             inp = x

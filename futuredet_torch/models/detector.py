@@ -65,13 +65,15 @@ class PointPillarsDetector(nn.Module):
                         us_strides=r.us_strides, us_filters=r.us_filters)
         self.bbox_head = CenterHead(c.model.head)
 
-    def forward(self, points: torch.Tensor, points_valid: torch.Tensor
+    def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
+                bev_map: Optional[torch.Tensor] = None
                 ) -> List[Dict[str, torch.Tensor]]:
-        """points (B, P, F) f32, points_valid (B, P) bool -> per task a dict
-        of NHWC head maps."""
+        """points (B, P, F) f32, points_valid (B, P) bool, and the (B, H, W,
+        1) ego map of a bev_map config -> per task a dict of NHWC head
+        maps."""
         canvas = self.reader(points, points_valid)            # (B, H, W, C)
         x = self.neck(canvas.permute(0, 3, 1, 2))
-        return self.bbox_head(x)
+        return self.bbox_head(x, bev_map)
 
 
 class VoxelNetDetector(nn.Module):
@@ -121,14 +123,16 @@ class VoxelNetDetector(nn.Module):
         self.bbox_head = CenterHead(m.head)
         self.num_voxels: List[int] = []
 
-    def forward(self, points: torch.Tensor, points_valid: torch.Tensor
+    def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
+                bev_map: Optional[torch.Tensor] = None
                 ) -> List[Dict[str, torch.Tensor]]:
-        """points (B, P, F) f32, points_valid (B, P) bool -> per task a dict
-        of NHWC head maps."""
+        """points (B, P, F) f32, points_valid (B, P) bool, and the (B, H, W,
+        1) ego map of a bev_map config -> per task a dict of NHWC head
+        maps."""
         feats, vm = self.voxelize(points, points_valid)
         bev, zmask = self.backbone(feats, vm.coords, vm.batch,
                                    points.shape[0])
-        return self.bbox_head(self.neck(self.crush(bev, zmask)))
+        return self.bbox_head(self.neck(self.crush(bev, zmask)), bev_map)
 
     def voxelize(self, points: torch.Tensor, points_valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, PointVoxelMap]:
@@ -166,8 +170,8 @@ def build_detector(cfg: ExperimentConfig,
     dev = resolve_device(device)
     if cfg.model.two_stage_refine:
         raise NotImplementedError(
-            "two-stage refinement is not ported yet (ROADMAP.md, queue 1: "
-            "long tail, models/two_stage.py)")
+            "two-stage refinement is not ported yet (ROADMAP.md, queue 1, "
+            "item 1: two-stage, models/two_stage.py)")
     if cfg.model.detector == "pointpillars":
         model = PointPillarsDetector(cfg)
     elif cfg.model.detector == "voxelnet":
@@ -179,5 +183,5 @@ def build_detector(cfg: ExperimentConfig,
     for m in model.modules():
         if isinstance(m, SparseConv):
             m.reset_parameters(g)
-    model.bbox_head.reset_hm_bias()
+    model.bbox_head.reset_init()
     return model.to(dev).eval()

@@ -1,9 +1,8 @@
-"""CenterNet losses and the dense-mode loss assembly.
+"""CenterNet losses and the per-mode loss assembly.
 
-Port of `futuredet_tpu/models/losses.py:42-122` (reference
+Port of `futuredet_tpu/models/losses.py` (reference
 `det3d/models/losses/centernet_loss.py:7-95` and CenterHead.loss,
-`center_head.py:396-539`) for the dense forecast head; the other head
-modes raise.
+`center_head.py:396-539`) for every single-stage head mode.
 
 Layouts: predictions NHWC (B, H, W, C); targets as
 `data/targets.py::build_targets_batch` gives them (hm (B, T, H, W, C),
@@ -11,7 +10,7 @@ ind / mask / cat (B, T, M), anno_box (B, T, M, 14)).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -57,13 +56,21 @@ def _sigmoid_clip(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.sigmoid(x), 1e-4, 1 - 1e-4)
 
 
-def assemble_anno_box(pd: Dict[str, torch.Tensor], cfg: HeadConfig
-                      ) -> torch.Tensor:
-    """The regression maps in the anno_box layout (ref :447-475), dense
-    mode: [reg, height, dim, vel, (rvel, rot, rrot) or rot]."""
-    parts = [pd["reg"], pd["height"], pd["dim"], pd["vel"]]
+def assemble_anno_box(pd: Dict[str, torch.Tensor], cfg: HeadConfig,
+                      timestep: Optional[int] = None) -> torch.Tensor:
+    """The regression maps in the anno_box layout (ref :447-475): [reg,
+    height, dim, vel, (rvel, rot, rrot) or rot]. Standard, reverse and
+    sparse heads widen vel (and rvel) by `timesteps`: `timestep` picks its
+    2 channels; dense, classify and wide heads pass None."""
+    sliced = timestep is not None and not (cfg.dense or cfg.classify
+                                           or cfg.wide_head)
+
+    def pick(x):
+        return x[..., 2 * timestep:2 * timestep + 2] if sliced else x
+
+    parts = [pd["reg"], pd["height"], pd["dim"], pick(pd["vel"])]
     if "rvel" in dict(cfg.common_heads):
-        parts += [pd["rvel"], pd["rot"], pd["rrot"]]
+        parts += [pick(pd["rvel"]), pd["rot"], pd["rrot"]]
     else:
         parts += [pd["rot"]]
     return torch.cat(parts, -1)
@@ -72,32 +79,81 @@ def assemble_anno_box(pd: Dict[str, torch.Tensor], cfg: HeadConfig
 def center_head_loss(cfg: HeadConfig, preds: List[Dict[str, torch.Tensor]],
                      targets: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """{"loss": (), "hm_loss": (T,), "loc_loss": (T,)} of the dense head:
-    task t against timestep t's targets, loss = sum_t hm_loss + weight *
-    loc_loss (ref center_head.py:396-539)."""
-    if not cfg.dense or cfg.two_stage:
+    """{"loss": (), "hm_loss": (tasks,), "loc_loss": (tasks,)}: per task
+    the focal loss of its heatmap and the weighted L1 of its boxes against
+    the targets its mode reads, loss = sum hm_loss + weight * loc_loss
+    (`futuredet_tpu/models/losses.py::center_head_loss`, ref
+    center_head.py:396-539). Future timesteps of a standard, reverse or
+    sparse head take `code_weights_forecast`."""
+    if cfg.two_stage:
         raise NotImplementedError(
-            "only the dense head's loss is ported yet (ROADMAP.md, queue 1, "
-            "item 5: other head modes)")
+            "the two-stage loss weights are not ported yet (ROADMAP.md, "
+            "queue 1, item 1: two-stage)")
     dev = targets["hm"].device
-    cw = torch.tensor(cfg.code_weights, dtype=torch.float32, device=dev)
+    # one copy to the device for both weight vectors
+    cw, cwf = torch.tensor([cfg.code_weights, cfg.code_weights_forecast],
+                           dtype=torch.float32, device=dev)
     has_rvel = "rvel" in dict(cfg.common_heads)
     cols = torch.tensor(tuple(range(14)) if has_rvel else _TARGET_COLS_10,
                         device=dev)
-    hm_t, ind_t = targets["hm"], targets["ind"]
-    mask_t, cat_t, anno_t = targets["mask"], targets["cat"], \
-        targets["anno_box"]
+    T = cfg.timesteps
+
+    def family(suffix, t):
+        """(hm, ind, mask, cat, anno_box) of one family at timestep t."""
+        return tuple(targets[k + suffix][:, t]
+                     for k in ("hm", "ind", "mask", "cat", "anno_box"))
+
+    def loc(pd, i, mask, ind, anno):
+        bl = reg_loss(assemble_anno_box(pd, cfg, i), mask, ind,
+                      anno.index_select(-1, cols))
+        return torch.sum(bl * (cwf if i else cw))
+
     total = 0.0
     hm_losses, loc_losses = [], []
-    for t, pd in enumerate(preds):
-        hm_loss = fast_focal_loss(_sigmoid_clip(pd["hm"]), hm_t[:, t],
-                                  ind_t[:, t], mask_t[:, t], cat_t[:, t])
-        tgt = anno_t[:, t].index_select(-1, cols)
-        bl = reg_loss(assemble_anno_box(pd, cfg), mask_t[:, t], ind_t[:, t],
-                      tgt)
-        loc = torch.sum(bl * cw)
-        total = total + hm_loss + cfg.weight * loc
+    for task_id, pd in enumerate(preds):
+        hm_pred = _sigmoid_clip(pd["hm"])
+        if cfg.dense or cfg.classify:
+            suffix = "_trajectory" if cfg.classify else ""
+            hm, ind, mask, cat, anno = family(suffix, task_id)
+            hm_loss = fast_focal_loss(hm_pred, hm, ind, mask, cat)
+            lo = loc(pd, None, mask, ind, anno)
+        elif cfg.wide_head:
+            # quirk kept (ref :418, :441, :497): the heatmap against the
+            # forecast family, the boxes against the trajectory family.
+            # The forecast family's object axis is T * M; its first M slots
+            # are the t = 0 objects in the trajectory family's order
+            hm, ind, mask, cat, _ = family("_forecast", 0)
+            hm_loss = fast_focal_loss(hm_pred, hm, ind, mask, cat)
+            anno = targets["anno_box_trajectory"][:, 0]
+            M = anno.shape[1]
+            lo = loc(pd, None, mask[:, :M], ind[:, :M], anno)
+        elif cfg.sparse:
+            # task 0: the forward chain anchored at t = 0; task 1: the
+            # reverse chain at t = T - 1 (ref :411, :427-432, :487). Quirk
+            # kept: both take the box target of t = 0 (task 1 indexes its
+            # reversed list at T - 1, ref :432, :487), with the anchor's
+            # mask and ind
+            hm, ind, mask, cat, _ = family("", (T - 1) * task_id)
+            hm_loss = fast_focal_loss(hm_pred, hm, ind, mask, cat)
+            anno0 = targets["anno_box"][:, 0]
+            lo = sum(loc(pd, i, mask, ind, anno0) for i in range(T))
+        elif cfg.reverse:
+            hm, ind, mask, cat, _ = family("", -1)
+            hm_loss = fast_focal_loss(hm_pred, hm, ind, mask, cat)
+            lo = sum(loc(pd, i, mask, ind, targets["anno_box"][:, T - 1 - i])
+                     for i in range(T))
+        else:
+            # standard (ref :421, :444, :500, :513-514). Multitask class
+            # groups: the leading target axis is the task (timesteps == 1),
+            # the heatmap channel-padded to the widest group
+            fam = task_id if cfg.multitask else 0
+            hm, ind, mask, cat, _ = family("", fam)
+            hm_loss = fast_focal_loss(hm_pred, hm[..., :hm_pred.shape[-1]],
+                                      ind, mask, cat)
+            lo = sum(loc(pd, i, mask, ind, targets["anno_box"][:, fam + i])
+                     for i in range(T))
+        total = total + hm_loss + cfg.weight * lo
         hm_losses.append(hm_loss)
-        loc_losses.append(loc)
+        loc_losses.append(lo)
     return {"loss": total, "hm_loss": torch.stack(hm_losses),
             "loc_loss": torch.stack(loc_losses)}

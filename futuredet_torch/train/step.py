@@ -9,7 +9,8 @@ eps 1e-8, b2 0.999; the learning rate and b1 follow the one-cycle schedule
 at the count of updates done so far (0 for the first update), as optax's
 `inject_hyperparams` evaluates them; gradients are clipped to a global
 norm of 35 as optax.clip_by_global_norm clips them. Data parallelism, the
-`space` axis and the two-stage freeze are not ported yet (ROADMAP.md).
+`space` axis and the two-stage freeze are not ported yet (ROADMAP.md,
+queue 1).
 
 A first AdamW step moves every parameter by about lr * sign(g), so two
 runs whose gradients differ by rounding can move a parameter with a
@@ -77,11 +78,12 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 
 def forward_backward(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
     """Targets from batch["targets_raw"] on the device, the forward in the
-    model's mode, the dense head's loss and its backward into `.grad`.
-    Returns the losses."""
+    model's mode (with batch["bev_map"] for a bev_map config), the head
+    mode's loss and its backward into `.grad`. Returns the losses."""
     cfg = model.cfg
     targets = build_targets_batch(cfg, batch["targets_raw"])
-    preds = model(batch["points"], batch["points_valid"])
+    preds = model(batch["points"], batch["points_valid"],
+                  batch.get("bev_map"))
     losses = center_head_loss(cfg.model.head, preds, targets)
     losses["loss"].backward()
     return losses
@@ -102,7 +104,8 @@ def apply_update(model: nn.Module, optimizer: torch.optim.Optimizer,
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict, step: int) -> Dict[str, torch.Tensor]:
     """One update of a model in train mode on a batch on its device
-    ({"points", "points_valid", "targets_raw"}). `step` is the count of
+    ({"points", "points_valid", "targets_raw"}, and "bev_map" for a
+    bev_map config). `step` is the count of
     updates done before this one. Returns {loss, hm_loss, loc_loss,
     grad_norm} as tensors on the device."""
     if not model.training:

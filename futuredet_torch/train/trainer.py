@@ -146,7 +146,8 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
           device=None, prefetch_depth: int = 2,
           log_fn: Callable[[str], None] = log.info) -> TrainState:
     """Run the schedule of `cfg.train.total_epochs` epochs over `batches`
-    (an iterator of {"points", "points_valid", "targets_raw"} batches,
+    (an iterator of {"points", "points_valid", "targets_raw"} batches, with
+    "bev_map" for a bev_map config,
     e.g. `data/synthetic.py::make_batch` or `data/pipeline.py::
     batches_from_dataset`) on `device` (default: the card), from
     `build_detector(cfg, seed=cfg.train.seed)`. With `prefetch_depth` > 0

@@ -9,9 +9,13 @@ the port's `z_crush.*` (`_compose_extra_conv`).
 
 `_key_map` is the port's own copy of
 `futuredet_tpu/utils/convert_checkpoint.py::_key_map` for the ported
-modules (pillar reader, sparse middle encoder, neck, head), plus the
-port-only `z_crush.{0,1}` keys of VoxelNet's z_crush ConvBNReLU;
-`flax_to_state_dict` inverts its layout converters:
+modules (pillar reader, sparse middle encoder, neck, head with its
+`bev_conv`), plus the port-only `z_crush.{0,1}` keys of VoxelNet's z_crush
+ConvBNReLU and the DCN head's keys (the reference DCNSepHead's:
+`feature_adapt_{cls,reg}.{conv_offset,conv_adaption}`, `cls_head.{0,1,3}`,
+`task_head.<branch>`), which the JAX converter does not map. The widened
+vel and the multitask heads change shapes only. `flax_to_state_dict`
+inverts the layout converters:
 
   flax Dense kernel (in, out)              -> torch Linear (out, in)
   flax Conv kernel (kh, kw, in, out)       -> torch Conv2d (out, in, kh, kw)
@@ -20,6 +24,8 @@ port-only `z_crush.{0,1}` keys of VoxelNet's z_crush ConvBNReLU;
                                               (in, out, kh, kw)
   SparseConv kernel (27, in, out), K = (kd*3+kh)*3+kw
                                            -> spconv (kd, kh, kw, in, out)
+  FeatureAdaption adapt_kernel (9, in, out), K = ky*3+kx
+                                           -> DeformConv2d (out, in, ky, kx)
   BN scale/bias (params), mean/var (batch_stats)
                                            -> weight/bias, running_mean/var
 """
@@ -136,28 +142,58 @@ def _key_map(cfg: ExperimentConfig):
     h = m.head
     add(*_conv_bn_relu(("head", "shared_conv"), "bbox_head.shared_conv.0",
                        "bbox_head.shared_conv.1", bias=True))
+    if h.bev_map:
+        for i in range(3):
+            add(*_conv_bn_relu(("head", f"bev_conv{i}"),
+                               f"bbox_head.bev_conv.{3 * i}",
+                               f"bbox_head.bev_conv.{3 * i + 1}", bias=True))
+
+    def branch(ours_t, ref_t, name, num_conv):
+        # [conv(3j), bn(3j+1), relu] x (num_conv - 1), final conv
+        for j in range(num_conv - 1):
+            params.append((ours_t + (f"{name}_conv{j}", "kernel"),
+                           f"{ref_t}.{name}.{3 * j}.weight", "conv"))
+            params.append((ours_t + (f"{name}_conv{j}", "bias"),
+                           f"{ref_t}.{name}.{3 * j}.bias", "copy"))
+            add(*_bn(ours_t + (f"{name}_bn{j}",),
+                     f"{ref_t}.{name}.{3 * j + 1}"))
+        fi = 3 * (num_conv - 1)
+        params.append((ours_t + (f"{name}_final", "kernel"),
+                       f"{ref_t}.{name}.{fi}.weight", "conv"))
+        params.append((ours_t + (f"{name}_final", "bias"),
+                       f"{ref_t}.{name}.{fi}.bias", "copy"))
+
     for ti in range(len(h.num_classes)):
         ours_t = ("head", f"task{ti}")
         ref_t = f"bbox_head.tasks.{ti}"
+        if h.dcn_head:
+            # DCNSepHead (ref center_head.py:176-228)
+            for fa in ("feature_adapt_cls", "feature_adapt_reg"):
+                params += [
+                    (ours_t + (fa, "conv_offset", "kernel"),
+                     f"{ref_t}.{fa}.conv_offset.weight", "conv"),
+                    (ours_t + (fa, "conv_offset", "bias"),
+                     f"{ref_t}.{fa}.conv_offset.bias", "copy"),
+                    (ours_t + (fa, "adapt_kernel"),
+                     f"{ref_t}.{fa}.conv_adaption.weight", "deform")]
+            for part, idx in (("cls_conv", 0), ("cls_final", 3)):
+                params.append((ours_t + (part, "kernel"),
+                               f"{ref_t}.cls_head.{idx}.weight", "conv"))
+                params.append((ours_t + (part, "bias"),
+                               f"{ref_t}.cls_head.{idx}.bias", "copy"))
+            add(*_bn(ours_t + ("cls_bn",), f"{ref_t}.cls_head.1"))
+            for name, (_ch, num_conv) in h.common_heads:
+                branch(ours_t + ("task_head",), f"{ref_t}.task_head", name,
+                       num_conv)
+            continue
         if h.forecast_feature:
             for ci, (rc, rb) in enumerate(((0, 1), (3, 4))):
                 add(*_conv_bn_relu(ours_t + (f"forecast_conv{ci}",),
                                    f"{ref_t}.forecast_conv.{rc}",
                                    f"{ref_t}.forecast_conv.{rb}", bias=True))
-        branches = list(h.common_heads) + [("hm", (0, h.num_hm_conv))]
-        for name, (_ch, num_conv) in branches:
-            for j in range(num_conv - 1):
-                params.append((ours_t + (f"{name}_conv{j}", "kernel"),
-                               f"{ref_t}.{name}.{3 * j}.weight", "conv"))
-                params.append((ours_t + (f"{name}_conv{j}", "bias"),
-                               f"{ref_t}.{name}.{3 * j}.bias", "copy"))
-                add(*_bn(ours_t + (f"{name}_bn{j}",),
-                         f"{ref_t}.{name}.{3 * j + 1}"))
-            fi = 3 * (num_conv - 1)
-            params.append((ours_t + (f"{name}_final", "kernel"),
-                           f"{ref_t}.{name}.{fi}.weight", "conv"))
-            params.append((ours_t + (f"{name}_final", "bias"),
-                           f"{ref_t}.{name}.{fi}.bias", "copy"))
+        for name, (_ch, num_conv) in (list(h.common_heads)
+                                      + [("hm", (0, h.num_hm_conv))]):
+            branch(ours_t, ref_t, name, num_conv)
     return params, stats
 
 
@@ -169,6 +205,9 @@ _TO_TORCH = {
     "deconv": lambda w: np.transpose(w[::-1, ::-1], (2, 3, 0, 1)),
     # (27, in, out) -> spconv (kd, kh, kw, in, out)
     "subm": lambda w: w.reshape(3, 3, 3, *w.shape[1:]),
+    # DCN adapt_kernel (9, in, out), tap k = ky * 3 + kx -> (out, in, 3, 3)
+    "deform": lambda w: np.transpose(w, (2, 1, 0)).reshape(
+        w.shape[2], w.shape[1], 3, 3),
     "copy": lambda w: w,
 }
 

@@ -5,6 +5,7 @@
                                      [--scene uniform|clustered] [--iters 5]
                                      [--decode-ops] [--train]
                                      [--trace PATH]
+    python3 scripts/torch_profile.py --train --model forecast_n3dtfm
 
 Builds the full-width model with seeded random weights and the scenes of
 chip_smoke.py, runs a scene through the model's stages (pillars: reader ->
@@ -24,8 +25,9 @@ of their name, wrapped around the library function here; it prints each
 range's and each aten op's host and device time per run, every kernel of
 the stage, and the stage's synced wall. `--train` instead traces
 full-width train steps of the model on chip_smoke.py's train scene
-(`train_ops`). TF32 is off, as in chip_smoke.py. `--trace` writes the
-Chrome trace.
+(`train_ops`); with `--train`, `--model` takes any single-stage name of
+CONFIG_NAMES (a bev_map config gets its scene's ego map). TF32 is off, as
+in chip_smoke.py. `--trace` writes the Chrome trace.
 """
 from __future__ import annotations
 
@@ -172,7 +174,8 @@ def train_ops(name, iters, card, dev_us):
             targets = build_targets_batch(cfg, batch["targets_raw"])
         with record_function("forward_loss"):
             loss = center_head_loss(
-                cfg.model.head, model(batch["points"], batch["points_valid"]),
+                cfg.model.head, model(batch["points"], batch["points_valid"],
+                                      batch.get("bev_map")),
                 targets)["loss"]
         with record_function("backward"):
             loss.backward()
@@ -224,7 +227,7 @@ def train_ops(name, iters, card, dev_us):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default=NAME, choices=tuple(STAGES))
+    ap.add_argument("--model", default=NAME)
     ap.add_argument("--scene", default="uniform",
                     choices=("uniform", "clustered"))
     ap.add_argument("--iters", type=int, default=5)
@@ -255,6 +258,9 @@ def main() -> int:
     if args.train:
         train_ops(args.model, args.iters, card, dev_us)
         return 0
+    if args.model not in STAGES:
+        ap.error(f"--model {args.model}: inference stages are split for "
+                 f"{sorted(STAGES)} only")
     stages = STAGES[args.model]
     cfg = get_config(args.model)
     seed = 0 if args.scene == "uniform" else 1

@@ -391,3 +391,67 @@ def test_eval_phases_rehearse_on_the_cpu(eval_phases_on_the_cpu, tmp_path):
     assert len(golden) == 10
     assert max(g["max_abs_err"] for g in golden.values()) <= cs.GOLDEN_ATOL
     assert lines[-1]["oracle_gt_as_detections"]["mAP"] > cs.ORACLE_FLOOR
+
+
+@pytest.fixture
+def head_mode_phases_on_the_cpu(eval_phases_on_the_cpu, monkeypatch):
+    """chip_smoke's head-mode phases (23-25) on the CPU, on top of the
+    evaluation rehearsal: every config they name at the small VoxelNet (or
+    tiny_variant for pillars) with its own head, data and sampler."""
+    from futuredet_torch import config
+    from tests.test_torch_train_modes import mode_config
+    names = {n for n, _ in cs.HEAD_MODES} | set(cs.HEAD_MODES_TRAIN) \
+        | {n for n, _ in cs.HEAD_MODES_CLI}
+    # the module's own get_config: the config module's is patched already
+    unpatched = types.SimpleNamespace(get_config=get_config,
+                                      tiny_variant=config.tiny_variant)
+    small = {n: (config.tiny_variant(get_config(n)) if n.startswith("pp_")
+                 else mode_config(unpatched, n)) for n in names}
+    monkeypatch.setattr(config, "get_config", lambda name: small[name])
+    return eval_phases_on_the_cpu
+
+
+def test_head_mode_phases_rehearse_on_the_cpu(head_mode_phases_on_the_cpu):
+    lines = head_mode_phases_on_the_cpu
+    dev = torch.device("cpu")
+    modes = cs.head_modes_path(dev, "cpu")
+    assert len(modes) == len(cs.HEAD_MODES) == 10
+    assert {n: v["g"] for n, v in modes.items()} == {
+        "forecast_n0": 7, "forecast_n3": 7, "forecast_n3dtfm": 7,
+        "centerpoint_multitask": 6, "pp_centerpoint_multitask": 6,
+        "forecast_n3+reverse": 7, "forecast_n3+sparse": 14,
+        "forecast_n3+classify": 7, "forecast_n3+wide_head": 7,
+        "forecast_n0+dcn_head": 7}
+    assert all(v["k1"] == 1 for v in modes.values())
+    assert modes["pp_centerpoint_multitask"]["k2"] == 0
+    assert modes["forecast_n3+wide_head"]["k2"] == 20
+    checked = [ln for ln in lines if "hm_max_abs_err" in ln]
+    assert [ln["model"] for ln in checked] == [
+        "forecast_n0", "forecast_n3", "forecast_n3dtfm",
+        "centerpoint_multitask", "pp_centerpoint_multitask",
+        "forecast_n0+dcn_head"]
+    assert all(ln["hm_max_abs_err"] == 0.0 and not ln["let_off_at_the_cut"]
+               for ln in checked)
+    assert [ln["bev_map"] for ln in lines].count(True) == 1
+
+    del lines[:]
+    train = cs.head_modes_train_path(dev, "cpu")
+    assert set(train) == set(cs.HEAD_MODES_TRAIN)
+    assert all(v == {"k1": 0, "k2_forward": 20, "k2_dx": 19}
+               for v in train.values())
+    assert [ln["phase"] for ln in lines] == ["head_modes_train"] * 4 + [
+        "train_cpu_cross_check"]
+    assert lines[-1]["model"] == "centerpoint_multitask"
+    assert lines[-1]["loss_rel_err"] == 0.0
+    assert len(lines[3]["hm_loss"]) == 6
+
+    del lines[:]
+    cli = cs.head_modes_cli_path(dev, "cpu")
+    n = cs.HEAD_MODE_CLI_SCENES
+    assert cli == {"forecast_n0_head_mode_eval": {"k1": n, "k2": 20 * n},
+                   "centerpoint_multitask_head_mode_eval":
+                   {"k1": n, "k2": 20 * n}}
+    assert lines[0]["classes"] == ["car"]
+    assert len(lines[1]["classes"]) == 10
+    for ln in lines:
+        assert os.path.exists(os.path.join(cs.ROOT, ln["metrics"]))

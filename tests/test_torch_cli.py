@@ -220,9 +220,11 @@ def test_the_cli_runs_on_the_card_by_default(tmp_path):
     (evaluate.main, ["--space", "2"], "DDP"),
     (evaluate.main, ["--coordinator_address", "localhost:1",
                      "--num_processes", "2"], "DDP"),
-    (evaluate.main, ["--model", "pp_forecast_n3dtf_two_stage"], "long tail"),
-    (train.main, ["--first_stage_checkpoint", "w"], "long tail"),
-    (train.main, ["--model", "forecast_n3dtf_two_stage"], "long tail"),
+    (evaluate.main, ["--model", "pp_forecast_n3dtf_two_stage"],
+     "item 1: two-stage"),
+    (train.main, ["--first_stage_checkpoint", "w"], "item 1: two-stage"),
+    (train.main, ["--model", "forecast_n3dtf_two_stage"],
+     "item 1: two-stage"),
     (train.main, ["--profile", "trace"], "long tail"),
     (train.main, ["--space", "2"], "DDP"),
     (train.main, ["--num_processes", "4", "--process_id", "1"], "DDP"),
@@ -382,12 +384,13 @@ def test_without_a_checkpoint_the_seeded_init_is_evaluated(tmp_path,
         evaluate.main(["--model", MODEL, "--tiny", "--device", "cpu"])
 
 
-def test_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
+def compare_with_the_jax_cli(model_name, extra, per_slice):
     """The JAX CLI's seeded init (PRNGKey(0) on its first batch), carried
-    across by flax_to_state_dict into a port checkpoint: both CLIs on the
-    same synthetic scenes with the fp32 feed give the same detections,
-    timestep by timestep (`match_timestep`'s let-off), and every summary
-    value within 1e-6."""
+    across by flax_to_state_dict into a port checkpoint, then both CLIs on
+    the same tiny synthetic scenes with the fp32 feed and `extra` flags, in
+    the current directory. Detections compared per pseudo-task slice
+    (`match_timestep`'s let-off; with `per_slice` labels too), every
+    summary value within 1e-6. Returns the port's summary."""
     from futuredet_tpu.cli import evaluate as jax_evaluate
     from futuredet_tpu.config import get_config as jax_get_config
     from futuredet_tpu.config import tiny_variant as jax_tiny_variant
@@ -399,14 +402,13 @@ def test_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     from futuredet_torch.train.step import make_optimizer
     from futuredet_torch.utils.convert_checkpoint import flax_to_state_dict
 
-    monkeypatch.chdir(tmp_path)
-    cfg_j = jax_tiny_variant(jax_get_config(MODEL))
+    cfg_j = jax_tiny_variant(jax_get_config(model_name))
     first = jax_make_batch(cfg_j, 1, seed=0, clutter_mode="lidar")
     first = {k: v for k, v in first.items()
              if k in ("points", "points_valid", "targets", "bev_map")}
     state = init_state(cfg_j, jax.random.PRNGKey(0),
                        jax.tree.map(lambda x: x[:1], first), total_steps=1)
-    cfg = tiny_variant(get_config(MODEL))
+    cfg = tiny_variant(get_config(model_name))
     model = build_detector(cfg, device="cpu")
     model.load_state_dict(flax_to_state_dict(
         jax.device_get({"params": state.params,
@@ -415,9 +417,8 @@ def test_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     CheckpointManager("port_ckpt").save(1, model,
                                         make_optimizer(cfg, model, 1))
 
-    common = ["--model", MODEL, "--tiny", "--synthetic", "2",
-              "--feed_dtype", "fp32", "--forecast_mode", "velocity_dense",
-              "--cohort_analysis", "--K", "5", "--extractBox"]
+    common = ["--model", model_name, "--tiny", "--synthetic", "2",
+              "--feed_dtype", "fp32", "--K", "5", "--extractBox"] + extra
     want = jax_evaluate.main(common + [
         "--checkpoint_dir", "no_jax_ckpt", "--predictions_path", "j.pkl",
         "--out", "j.json"])
@@ -434,16 +435,21 @@ def test_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     n, let_off = 0, []
     for (det, _, tok), (jdet, _, jtok) in zip(psaved, jsaved):
         assert tok == jtok
-        for t in range(cfg.model.head.timesteps):
+        for t in range(det.valid.shape[1] // post):
             sl = slice(t * post, (t + 1) * post)
             keep = det.valid[0, sl]
             jkeep = np.asarray(jdet.valid[0, sl])
             assert keep.sum() == jkeep.sum()
             n += int(keep.sum())
-            let_off += match_timestep(
+            off = match_timestep(
                 det.boxes[0, sl][keep], det.scores[0, sl][keep],
                 np.asarray(jdet.boxes[0, sl])[jkeep],
                 np.asarray(jdet.scores[0, sl])[jkeep], post, thr)
+            if per_slice and not off:
+                np.testing.assert_array_equal(
+                    np.sort(det.labels[0, sl][keep]),
+                    np.sort(np.asarray(jdet.labels[0, sl])[jkeep]))
+            let_off += off
     assert n > 50 and len(let_off) <= MAX_LET_OFF, let_off
 
     def flat(d, path=""):
@@ -457,3 +463,56 @@ def test_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     for k, v in want_flat.items():
         assert abs(got_flat[k] - v) <= SUMMARY_ATOL, (k, got_flat[k], v)
     assert any(v not in (0.0, 1.0) for v in want_flat.values())
+    return got
+
+
+def test_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
+    """pp_forecast_n3dtf with velocity_dense linking and cohorts: the same
+    detections timestep by timestep and every summary value within
+    1e-6."""
+    monkeypatch.chdir(tmp_path)
+    compare_with_the_jax_cli(MODEL, ["--forecast_mode", "velocity_dense",
+                                     "--cohort_analysis"], False)
+
+
+def test_multitask_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
+    """pp_centerpoint_multitask: six class groups decoded with global
+    class ids, class-labeled detection metrics over the ten class names,
+    the same as the JAX CLI's."""
+    monkeypatch.chdir(tmp_path)
+    got = compare_with_the_jax_cli("pp_centerpoint_multitask", [], True)
+    from futuredet_torch.config import get_config
+    assert list(got["mean_dist_aps"]) == list(
+        get_config("pp_centerpoint_multitask").data.class_names)
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("forecast_n0", ["--forecast_mode", "velocity_constant"]),
+    ("centerpoint_multitask", []),
+    ("forecast_n3dtfm", ["--forecast_mode", "velocity_dense"])])
+def test_head_mode_evaluate_cli_runs(tmp_path, model, extra, caplog):
+    """The evaluate CLI on VoxelNet head modes: forecast_n0 (one vel map
+    replicated into 7 pseudo-timesteps, linked at constant velocity),
+    centerpoint_multitask (class-labeled metrics JSON and CSV) and
+    forecast_n3dtfm (the synthetic scenes' ego maps fed); --tta on a
+    bev_map config is refused."""
+    caplog.set_level(logging.INFO, logger="futuredet_torch")
+    out = str(tmp_path / "m.json")
+    argv = ["--model", model, "--tiny", "--device", "cpu", "--synthetic",
+            "2", "--out", out] + extra
+    summary = evaluate.main(argv)
+    with open(out) as f:
+        assert json.load(f) == summary
+    classes = list(summary["mean_dist_aps"])
+    if model == "centerpoint_multitask":
+        assert len(classes) == 10 and classes[0] == "car"
+        with open(out.replace(".json", ".csv")) as f:
+            assert [r[0] for r in csv.reader(f)][1:] == classes
+    else:
+        assert classes == ["car"]
+    for v in summary["mean_dist_aps"].values():
+        assert 0 <= v <= 1
+    assert "voxel budget" in caplog.text
+    if model == "forecast_n3dtfm":
+        with pytest.raises(SystemExit, match="bev_map"):
+            evaluate.main(argv + ["--tta", "map"])

@@ -156,6 +156,26 @@ def test_native_matches_numpy(seed, topk, oracle):
                                       abs=1e-4), (cls, k)
 
 
+def test_one_step_gt_native_matches_numpy_and_jax(monkeypatch):
+    """The GT of a timesteps == 1 config (forecast_n0) holds one position
+    per object, the linked predictions seven: the native matcher broadcasts
+    the GT over the horizon as the numpy matcher does, and both give the
+    JAX package's numpy summary."""
+    def world(mod):
+        preds, gts = random_world(mod, 4)
+        for g in gts:
+            g.centers = g.centers[:1]
+        return preds, gts
+    kw = dict(topk=2, cohort_analysis=True)
+    ref = M.evaluate_forecasts(*world(M), ["car"], native=False, **kw)
+    out = M.evaluate_forecasts(*world(M), ["car"], native=True, **kw)
+    assert_tree(out.summary(), ref.summary(), 1e-4)
+    monkeypatch.setattr(JM, "_USE_NATIVE", False)
+    want = JM.evaluate_forecasts(*world(JM), ["car"], **kw)
+    assert_tree(ref.summary(), want.summary(), NUMPY_ATOL)
+    assert max(ref.mean_dist_aps.values()) > 0
+
+
 def test_native_accumulate_direct():
     preds, gts = random_world(M, 7, n_samples=3, n_gt=8, n_pred=20)
     units, key = M._make_units(preds, True, 2)

@@ -104,10 +104,6 @@ def test_entry_points_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         build_detector(cfg.replace(model=dataclasses.replace(
             cfg.model, compute_dtype="bfloat16")), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_detector(get_config("pp_forecast_n3dtfm"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_detector(get_config("pp_centerpoint_multitask"), device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):

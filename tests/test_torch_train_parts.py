@@ -1,6 +1,7 @@
 """The training parts of futuredet_torch against the JAX package, on the
 same numpy-seeded inputs: the synthetic scenes (bit-identical), the
-gaussian targets of all three families (1e-6; ind, mask and cat equal),
+gaussian targets of all three families and the multitask family (1e-6;
+ind, mask and cat equal),
 the dense head's loss and its gradients with respect to the predictions
 (1e-5), the one-cycle schedules at every step of a 50-step run (1e-6
 relative: XLA's and torch's float32 cos differ by an ulp at one step), and
@@ -119,12 +120,25 @@ def test_targets_match_jax(out_size_factor):
 
 
 def test_multitask_targets_raise():
+    """The multitask family (no longer refused) against the JAX package's:
+    per class group the t = 0 objects of its classes, heatmaps padded to
+    the widest group, `cat` the index within the group."""
     cfg = port_config.tiny_variant(
         port_config.get_config("centerpoint_multitask"))
+    cfg_j = jax_config.tiny_variant(
+        jax_config.get_config("centerpoint_multitask"))
     s = synthetic.make_scene(cfg, seed=0, **scene_kwargs())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_targets(cfg, *(torch.from_numpy(getattr(s, f)) for f in
-                             ("gt_boxes", "gt_classes", "gt_valid")))
+    fields = ("gt_boxes", "gt_classes", "gt_valid", "traj_classes")
+    got = build_targets(cfg, *(torch.from_numpy(getattr(s, f))
+                               for f in fields))
+    want = jax.device_get(jax_build_targets(cfg_j, *(getattr(s, f)
+                                                     for f in fields)))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(w),
+                                   atol=TARGET_ATOL, rtol=0, err_msg=k)
+    assert got["hm"].shape[0] == 6 and int(got["mask"].sum()) > 0
 
 
 def random_preds(cfg, rng, B):
@@ -172,9 +186,13 @@ def test_center_head_loss_and_its_gradients_match_jax():
 
 
 def test_other_head_modes_raise():
+    """Every single-stage mode's loss runs
+    (tests/test_torch_loss_modes.py); the two-stage weights wait for their
+    slice."""
     cfg = port_config.tiny_variant(port_config.get_config("forecast_n3"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        center_head_loss(cfg.model.head, [], {"hm": torch.zeros(1)})
+    head = dataclasses.replace(cfg.model.head, two_stage=True)
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+        center_head_loss(head, [], {"hm": torch.zeros(1)})
 
 
 def test_schedules_match_jax_at_every_step():
