@@ -21,7 +21,8 @@ evaluates N scenes of `data/synthetic.py`.
 
 It runs on the card unless given `--device cpu`, and raises when no card is
 found. Per batch, `build_detector` -> forward -> `decode_and_nms` (or a
-double flip, `--tta map|box`) runs on the device; the detections are copied
+double flip, `--tta map|box`; a two-stage model's refined detections,
+without `--tta`) runs on the device; the detections are copied
 to the host behind the batch's work, and the host tail of a batch (linking,
 records) runs while the card computes the next one (a queue of depth 2).
 """
@@ -122,10 +123,6 @@ def refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             "--space > 1 and multi-process evaluation are not ported yet "
             "(ROADMAP.md, queue 1: DDP)")
-    if cfg.model.two_stage_refine:
-        raise NotImplementedError(
-            "two-stage configs are not ported yet (ROADMAP.md, queue 1, "
-            "item 1: two-stage, models/two_stage.py)")
 
 
 def synthetic_batches(cfg, n: int, batch_size: int, seed: int):
@@ -172,12 +169,14 @@ def restore_model(cfg, args, dev):
 
 def make_infer(cfg, model, tta: str):
     """points, valid (and a bev_map config's ego map) on the device ->
-    Detections on the device."""
+    Detections on the device: a two-stage model's refined detections (JAX
+    evaluate.py:187-197)."""
     import torch
 
     from ..data.feed import unpack_points
     from ..eval.decode import decode_and_nms
     from ..eval.tta import infer_double_flip, infer_double_flip_map
+    from ..models.two_stage import refined_detections
 
     tta_fn = {"map": infer_double_flip_map, "box": infer_double_flip}.get(tta)
 
@@ -186,7 +185,10 @@ def make_infer(cfg, model, tta: str):
         points = unpack_points(points)
         if tta_fn is not None:
             return tta_fn(cfg, model, points, valid)
-        return decode_and_nms(cfg, model(points, valid, bev_map))
+        out = model(points, valid, bev_map)
+        if cfg.model.two_stage_refine:
+            return refined_detections(*out[1:])
+        return decode_and_nms(cfg, out)
     return infer
 
 
@@ -231,6 +233,9 @@ def main(argv=None):
         # (futuredet_tpu/cli/evaluate.py:197-204)
         raise SystemExit("--tta is not supported for bev_map configs: the "
                          "flipped forwards take no ego map")
+    if args.tta != "none" and cfg.model.two_stage_refine:
+        # as the JAX CLI (futuredet_tpu/cli/evaluate.py:190-192)
+        raise SystemExit("--tta is not supported for two-stage configs")
     classname = cfg.data.class_names[0]
     # multitask class groups are detection-only: labels are global class
     # ids and there is no forecast linking (classic CenterPoint evaluation)

@@ -16,9 +16,18 @@ scalars to {work_dir}/tb.
   python -m futuredet_torch.cli.train --model pp_forecast_n3dtf \\
       --synthetic 64 --epochs 2 --val_synthetic 4
 
+A `_two_stage` config trains the RoI head and the vel / rot branches of
+its first stage (`models/two_stage.py`); `--first_stage_checkpoint DIR`
+grafts the latest checkpoint of the single-stage config (the name without
+`_two_stage`, its tiny variant under `--tiny`) into the first stage before
+the first step:
+
+  python -m futuredet_torch.cli.train --model pp_forecast_n3dtf_two_stage \\
+      --synthetic 64 --first_stage_checkpoint work/pp --work_dir work/pp2
+
 It runs on the card unless given `--device cpu`, and raises when no card is
-found. Two-stage grafting, the profiler, spatial sharding and
-multi-process training raise, naming their ROADMAP.md items.
+found. The profiler, spatial sharding and multi-process training raise,
+naming their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -66,7 +75,9 @@ def parse_args(argv=None):
     p.add_argument("--space", type=int, default=1,
                    help="spatial sharding of the BEV rows (not ported)")
     p.add_argument("--first_stage_checkpoint", default=None,
-                   help="two-stage configs (not ported)")
+                   help="a *_two_stage config: graft the latest checkpoint "
+                        "in this directory of the single-stage config into "
+                        "the first stage")
     p.add_argument("--coordinator_address", default=None,
                    help="multi-process training (not ported)")
     p.add_argument("--num_processes", type=int, default=None)
@@ -86,11 +97,6 @@ def parse_args(argv=None):
 def refuse_unported(args, cfg) -> None:
     """Flags whose paths the port does not have yet raise, naming their
     ROADMAP.md item."""
-    if args.first_stage_checkpoint or cfg.model.two_stage_refine:
-        raise NotImplementedError(
-            "two-stage configs and --first_stage_checkpoint are not ported "
-            "yet (ROADMAP.md, queue 1, item 1: two-stage, "
-            "models/two_stage.py)")
     if args.profile:
         raise NotImplementedError(
             "--profile: utils/profiling.py is not ported yet (ROADMAP.md, "
@@ -122,11 +128,13 @@ def make_val_fn(cfg, n: int, device):
     (seed 10 000), as the JAX CLI runs it: inference, then class-labeled
     detection metrics for multitask class groups, or linking
     (velocity_constant for standard heads, velocity_dense otherwise) and
-    the joint metrics. Returns state -> {"mAP", "mFAP"}."""
+    the joint metrics; a two-stage model scores its refined detections
+    (JAX cli/train.py:192-195). Returns state -> {"mAP", "mFAP"}."""
     from ..data.synthetic import make_batch
     from ..eval.decode import decode_and_nms
     from ..eval.evaluator import (evaluate_detections,
                                   evaluate_detections_multitask)
+    from ..models.two_stage import refined_detections
 
     vb = make_batch(cfg, max(n, 1), seed=10_000, clutter_mode="lidar",
                     device=device)
@@ -135,8 +143,10 @@ def make_val_fn(cfg, n: int, device):
     mode = "velocity_constant" if h.standard else "velocity_dense"
 
     def val_fn(state):
-        det = decode_and_nms(cfg, state.model(
-            vb["points"], vb["points_valid"], vb.get("bev_map")))
+        out = state.model(vb["points"], vb["points_valid"],
+                          vb.get("bev_map"))
+        det = (refined_detections(*out[1:]) if cfg.model.two_stage_refine
+               else decode_and_nms(cfg, out))
         if h.multitask:
             res = evaluate_detections_multitask(cfg, det, vb["gt"], tokens)
         else:
@@ -148,6 +158,32 @@ def make_val_fn(cfg, n: int, device):
                 "mFAP": round(float(np.mean(
                     list(res.mean_dist_faps.values()))), 4)}
     return val_fn
+
+
+def first_stage_graft(args, device):
+    """The trainer's `init_transform` for --first_stage_checkpoint (JAX
+    cli/train.py:213-241): the latest checkpoint of the single-stage config
+    restored into its own detector, then merged under the two-stage
+    model's `first_stage.` keys by `adopt_first_stage` (the two-stage
+    convs and the RoI head keep their init)."""
+    from ..config import get_config, tiny_variant
+    from ..models.detector import build_detector
+    from ..models.two_stage import adopt_first_stage
+    from ..train.checkpoints import CheckpointManager
+
+    single = get_config(args.model.removesuffix("_two_stage"))
+    if args.tiny:
+        single = tiny_variant(single)
+
+    def init_transform(state):
+        first = build_detector(single, device=device)
+        step = CheckpointManager(args.first_stage_checkpoint).restore(first)
+        log.info("grafted first-stage checkpoint step %d from %s", step,
+                 args.first_stage_checkpoint)
+        state.model.load_state_dict(adopt_first_stage(
+            state.model.state_dict(), first.state_dict()))
+        return state
+    return init_transform
 
 
 def info_batches(cfg, args, batch_size: int, pin_memory: bool):
@@ -187,6 +223,9 @@ def main(argv=None):
     if args.tiny:
         cfg = tiny_variant(cfg)
     refuse_unported(args, cfg)
+    if args.first_stage_checkpoint and not cfg.model.two_stage_refine:
+        raise SystemExit("--first_stage_checkpoint requires a *_two_stage "
+                         "config")
     if not args.synthetic and not args.info_path:
         raise SystemExit(
             "no dataset: pass --info_path <infos pkl> or --synthetic N")
@@ -216,9 +255,11 @@ def main(argv=None):
     if args.tensorboard:
         hooks.append(TensorBoardHook(os.path.join(work_dir, "tb"),
                                      interval=cfg.train.log_interval))
+    init_transform = (first_stage_graft(args, dev)
+                      if args.first_stage_checkpoint else None)
     state = train(cfg, batches, steps_per_epoch=steps_per_epoch,
                   work_dir=work_dir, resume=args.resume_from, val_fn=val_fn,
-                  hooks=hooks, device=dev)
+                  hooks=hooks, device=dev, init_transform=init_transform)
     log.info("training done at step %d; checkpoints in %s", state.step,
              work_dir)
     return state

@@ -10,7 +10,10 @@ SepHead per task. The tasks and their branch widths follow the mode
 forecast features)); sparse a forward and a reverse head; classify one
 3-class head per timestep; wide one 7-class head on a 512-channel share;
 multitask one head per class group. `dcn_head` replaces each SepHead by a
-DCNSepHead (deformable feature adaption, `ops/deform.py`).
+DCNSepHead (deformable feature adaption, `ops/deform.py`). `two_stage`
+(the first stage of `models/two_stage.py`) gives each SepHead a shared
+ConvBNReLU that vel and rot read (`two_stage_forecast_conv`), and one that
+rvel and rrot read (`two_stage_reverse_conv`) when those heads exist.
 
 Each SepHead branch is its own conv tower, as in the reference. The JAX
 package fuses branches into one wide conv on the TPU; that is a TPU
@@ -36,11 +39,20 @@ class SepHead(nn.Module):
     `name` is [conv(3j), bn(3j+1), relu(3j+2)] x (num_conv-1) + final conv,
     and `forecast_conv` is [conv(0), bn(1), relu, conv(3), bn(4), relu]:
     the reference key layout. The branch convs are `head_conv` wide, or
-    `in_channels` wide with `wide_head` (ref center_head.py:92)."""
+    `in_channels` wide with `wide_head` (ref center_head.py:92). With
+    `two_stage`, vel and rot read `two_stage_forecast_conv`, rvel and rrot
+    `two_stage_reverse_conv` (ConvBNReLU, `head_conv` wide, ref :102-117,
+    163-170), where both heads of the pair exist.
+
+    The JAX reference converter maps `two_stage_forecast_conv` onto the
+    reference's `forecast_conv.0/.1`, where forecast_feature's first conv
+    also lands; the port keeps its own name, so the two never share a
+    key."""
 
     def __init__(self, in_channels: int, heads: Heads, head_conv: int = 64,
                  final_kernel: int = 3, init_bias: float = -2.19,
-                 forecast_feature: bool = False, wide_head: bool = False):
+                 forecast_feature: bool = False, wide_head: bool = False,
+                 two_stage: bool = False):
         super().__init__()
         self.head_names = [h for h, _ in heads]
         self.forecast_feature = forecast_feature
@@ -52,10 +64,18 @@ class SepHead(nn.Module):
                 *conv_bn_relu(cin, head_conv, 3, 1, bias=True),
                 *conv_bn_relu(head_conv, head_conv, 3, 1, bias=True))
             cin = head_conv
+        # branch -> the shared two-stage conv it reads (ref :102-117)
+        self.src_of: Dict[str, str] = {}
+        for conv_name, pair in (("two_stage_forecast_conv", ("vel", "rot")),
+                                ("two_stage_reverse_conv", ("rvel", "rrot"))):
+            if two_stage and all(h in self.head_names for h in pair):
+                self.add_module(conv_name, ConvBNReLU(cin, head_conv, 3, 1,
+                                                      bias=True))
+                self.src_of.update(dict.fromkeys(pair, conv_name))
         p = (final_kernel - 1) // 2
         for name, (classes, num_conv) in heads:
             layers = []
-            c = cin
+            c = head_conv if name in self.src_of else cin
             for _ in range(num_conv - 1):
                 layers += conv_bn_relu(c, branch_conv, final_kernel, 1,
                                        bias=True)
@@ -74,8 +94,11 @@ class SepHead(nn.Module):
         if self.forecast_feature:
             x = self.forecast_conv(x)
             out["feats"] = x
+        srcs = {conv: getattr(self, conv)(x)
+                for conv in dict.fromkeys(self.src_of.values())}
         for name in self.head_names:
-            out[name] = getattr(self, name)(x)
+            inp = srcs[self.src_of[name]] if name in self.src_of else x
+            out[name] = getattr(self, name)(inp)
         return out
 
 
@@ -146,10 +169,6 @@ class DCNSepHead(nn.Module):
 class CenterHead(nn.Module):
     def __init__(self, cfg: HeadConfig):
         super().__init__()
-        if cfg.two_stage:
-            raise NotImplementedError(
-                "CenterHead two_stage mode (two_stage_forecast_conv) is not "
-                "ported yet (ROADMAP.md, queue 1, item 1: two-stage)")
         if cfg.dcn_head and cfg.forecast_feature:
             raise ValueError("dcn_head gives no forecast features: it takes "
                              "forecast_feature=False")
@@ -175,7 +194,7 @@ class CenterHead(nn.Module):
                 tasks.append(SepHead(
                     in_ch, heads, head_conv=share, init_bias=cfg.init_bias,
                     forecast_feature=cfg.forecast_feature,
-                    wide_head=cfg.wide_head))
+                    wide_head=cfg.wide_head, two_stage=cfg.two_stage))
         self.tasks = nn.ModuleList(tasks)
 
     @staticmethod

@@ -7,7 +7,10 @@ Port of `futuredet_tpu/models/detector.py`: the pillar path (reference
 reference det3d keys and a reference `.pth` loads with
 `load_state_dict(strict=True)`; VoxelNet's `z_crush` is the port's own
 (the reference `backbone.extra_conv` folds into it,
-`utils/convert_checkpoint.py::_compose_extra_conv`).
+`utils/convert_checkpoint.py::_compose_extra_conv`). `build_detector` of a
+`two_stage_refine` config builds `models/two_stage.py::TwoStageDetector`
+around one of these (`first_stage`), whose neck output it reads through
+`return_bev`.
 """
 from __future__ import annotations
 
@@ -42,6 +45,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def _with_bev(preds: List[Dict[str, torch.Tensor]], x: torch.Tensor,
+              return_bev: bool):
+    """preds, or (preds, the NCHW neck output `x` as an NHWC view): the JAX
+    detectors' `return_bev` (futuredet_tpu/models/detector.py:117-119)."""
+    return (preds, x.permute(0, 2, 3, 1)) if return_bev else preds
+
+
 class PointPillarsDetector(nn.Module):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
@@ -66,14 +76,15 @@ class PointPillarsDetector(nn.Module):
         self.bbox_head = CenterHead(c.model.head)
 
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
-                bev_map: Optional[torch.Tensor] = None
-                ) -> List[Dict[str, torch.Tensor]]:
+                bev_map: Optional[torch.Tensor] = None,
+                return_bev: bool = False):
         """points (B, P, F) f32, points_valid (B, P) bool, and the (B, H, W,
         1) ego map of a bev_map config -> per task a dict of NHWC head
-        maps."""
+        maps; with `return_bev`, (those, the (B, H, W, C) neck output) for
+        the second stage's pooling."""
         canvas = self.reader(points, points_valid)            # (B, H, W, C)
         x = self.neck(canvas.permute(0, 3, 1, 2))
-        return self.bbox_head(x, bev_map)
+        return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
 
 
 class VoxelNetDetector(nn.Module):
@@ -124,15 +135,16 @@ class VoxelNetDetector(nn.Module):
         self.num_voxels: List[int] = []
 
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
-                bev_map: Optional[torch.Tensor] = None
-                ) -> List[Dict[str, torch.Tensor]]:
+                bev_map: Optional[torch.Tensor] = None,
+                return_bev: bool = False):
         """points (B, P, F) f32, points_valid (B, P) bool, and the (B, H, W,
         1) ego map of a bev_map config -> per task a dict of NHWC head
-        maps."""
+        maps; with `return_bev`, (those, the (B, H, W, C) neck output)."""
         feats, vm = self.voxelize(points, points_valid)
         bev, zmask = self.backbone(feats, vm.coords, vm.batch,
                                    points.shape[0])
-        return self.bbox_head(self.neck(self.crush(bev, zmask)), bev_map)
+        x = self.neck(self.crush(bev, zmask))
+        return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
 
     def voxelize(self, points: torch.Tensor, points_valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, PointVoxelMap]:
@@ -160,28 +172,44 @@ class VoxelNetDetector(nn.Module):
         return x * zm.amax(1, keepdim=True)
 
 
-def build_detector(cfg: ExperimentConfig,
-                   device: Optional[Union[str, torch.device]] = None,
-                   seed: int = 0) -> nn.Module:
-    """The single-stage detector of `cfg.model.detector` ("pointpillars" or
-    "voxelnet") in eval mode on `device` (default: the card), with
-    LeCun-normal dense weights and the sparse convs' uniform init drawn
-    from `torch.Generator(seed)`."""
-    dev = resolve_device(device)
-    if cfg.model.two_stage_refine:
-        raise NotImplementedError(
-            "two-stage refinement is not ported yet (ROADMAP.md, queue 1, "
-            "item 1: two-stage, models/two_stage.py)")
+def build_single_stage(cfg: ExperimentConfig) -> nn.Module:
+    """The detector of `cfg.model.detector` ("pointpillars" or
+    "voxelnet"), untouched by any init."""
     if cfg.model.detector == "pointpillars":
-        model = PointPillarsDetector(cfg)
-    elif cfg.model.detector == "voxelnet":
-        model = VoxelNetDetector(cfg)
-    else:
-        raise ValueError(f"unknown detector {cfg.model.detector!r}")
-    g = torch.Generator().manual_seed(seed)
+        return PointPillarsDetector(cfg)
+    if cfg.model.detector == "voxelnet":
+        return VoxelNetDetector(cfg)
+    raise ValueError(f"unknown detector {cfg.model.detector!r}")
+
+
+def init_single_stage_(model: nn.Module, g: torch.Generator) -> None:
+    """The seeded init of a single-stage detector, drawn from `g`:
+    LeCun-normal dense weights in module order, then the sparse convs'
+    uniform init, then the head's non-default inits."""
     init_weights_(model, g)
     for m in model.modules():
         if isinstance(m, SparseConv):
             m.reset_parameters(g)
     model.bbox_head.reset_init()
+
+
+def build_detector(cfg: ExperimentConfig,
+                   device: Optional[Union[str, torch.device]] = None,
+                   seed: int = 0) -> nn.Module:
+    """The detector of `cfg` in eval mode on `device` (default: the card),
+    its weights drawn from `torch.Generator(seed)`: the single-stage
+    detector of `cfg.model.detector` ("pointpillars" or "voxelnet"), or
+    with `two_stage_refine` a `models/two_stage.py::TwoStageDetector`
+    whose first stage draws as the single-stage detector does, and its RoI
+    head after it."""
+    dev = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+    if cfg.model.two_stage_refine:
+        from .two_stage import TwoStageDetector
+        model = TwoStageDetector(cfg)
+        init_single_stage_(model.first_stage, g)
+        init_weights_(model.roi_head, g)
+    else:
+        model = build_single_stage(cfg)
+        init_single_stage_(model, g)
     return model.to(dev).eval()

@@ -2,7 +2,8 @@
 
 Port of `futuredet_tpu/models/losses.py` (reference
 `det3d/models/losses/centernet_loss.py:7-95` and CenterHead.loss,
-`center_head.py:396-539`) for every single-stage head mode.
+`center_head.py:396-539`) for every head mode, the first stage of a
+two-stage model included.
 
 Layouts: predictions NHWC (B, H, W, C); targets as
 `data/targets.py::build_targets_batch` gives them (hm (B, T, H, W, C),
@@ -84,15 +85,16 @@ def center_head_loss(cfg: HeadConfig, preds: List[Dict[str, torch.Tensor]],
     the targets its mode reads, loss = sum hm_loss + weight * loc_loss
     (`futuredet_tpu/models/losses.py::center_head_loss`, ref
     center_head.py:396-539). Future timesteps of a standard, reverse or
-    sparse head take `code_weights_forecast`."""
-    if cfg.two_stage:
-        raise NotImplementedError(
-            "the two-stage loss weights are not ported yet (ROADMAP.md, "
-            "queue 1, item 1: two-stage)")
+    sparse head take `code_weights_forecast`. The first stage of a
+    two-stage model (`two_stage`) weighs every timestep by
+    `code_weights_two_stage` (vel and rot only, ref :509-511) and has no
+    heatmap loss (ref :405-406): its hm_loss is 0."""
     dev = targets["hm"].device
     # one copy to the device for both weight vectors
-    cw, cwf = torch.tensor([cfg.code_weights, cfg.code_weights_forecast],
-                           dtype=torch.float32, device=dev)
+    cw, cwf = torch.tensor(
+        2 * [cfg.code_weights_two_stage] if cfg.two_stage
+        else [cfg.code_weights, cfg.code_weights_forecast],
+        dtype=torch.float32, device=dev)
     has_rvel = "rvel" in dict(cfg.common_heads)
     cols = torch.tensor(tuple(range(14)) if has_rvel else _TARGET_COLS_10,
                         device=dev)
@@ -152,6 +154,8 @@ def center_head_loss(cfg: HeadConfig, preds: List[Dict[str, torch.Tensor]],
                                       ind, mask, cat)
             lo = sum(loc(pd, i, mask, ind, targets["anno_box"][:, fam + i])
                      for i in range(T))
+        if cfg.two_stage:
+            hm_loss = torch.zeros((), device=dev)
         total = total + hm_loss + cfg.weight * lo
         hm_losses.append(hm_loss)
         loc_losses.append(lo)

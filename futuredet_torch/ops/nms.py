@@ -67,8 +67,10 @@ def rotate_nms(boxes: torch.Tensor, scores: torch.Tensor,
     top, order = top_k_stable(scores, pre_max)
     b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 7))
     ok = torch.isfinite(top)
+    # K1 and its plain version decide in float32: a float64 model's boxes
+    # are rounded to it (a no-op for a float32 model)
     nms_boxes = torch.stack([b[..., 0], b[..., 1], b[..., 4], b[..., 3],
-                             -b[..., 6] - math.pi / 2], -1)
+                             -b[..., 6] - math.pi / 2], -1).float()
     alive = rotate_nms_alive(nms_boxes, ok, iou_threshold)
     sel, count = _compact(alive, order, post_max)
     return sel.reshape(*lead, post_max), count.reshape(lead)

@@ -17,7 +17,10 @@ version round alike. K1 calls its victim box A and its killer box B; see
 `ops/pallas_nms.py`.
 
 Box parametrization: (x, y, dx, dy, angle), extent dx along the heading.
-All functions broadcast over leading batch dimensions.
+All functions broadcast over leading batch dimensions. The clamps are
+`torch.maximum` / `torch.minimum` against constants, whose gradients split
+at a tie as `jnp.maximum`'s do: the RoI head's loss differentiates the IoU
+(`models/two_stage.py::proposal_targets`).
 """
 from __future__ import annotations
 
@@ -54,10 +57,10 @@ def _edge_sum(px, py, qx, qy, cx, cy, cc, cs, hx, hy):
     rqy = -cs * (qx - cx) + cc * (qy - cy)
     lox, hix = _slab(rpx, rqx - rpx, hx)
     loy, hiy = _slab(rpy, rqy - rpy, hy)
-    t0 = torch.clamp_min(torch.maximum(lox, loy), 0.0)
-    t1 = torch.clamp_max(torch.minimum(hix, hiy), 1.0)
+    zero = torch.zeros_like(lox)
+    t0 = torch.maximum(torch.maximum(lox, loy), zero)
+    t1 = torch.minimum(torch.minimum(hix, hiy), torch.ones_like(hix))
     ok = t1 > t0
-    zero = torch.zeros_like(t0)
     t0 = torch.where(ok, t0, zero)
     t1 = torch.where(ok, t1, zero)
     ex = qx - px
@@ -106,6 +109,8 @@ def pairwise_iou_bev(boxes_a: torch.Tensor,
                       bhx - _CLIP_EPS, bhy - _CLIP_EPS)
     sb = _clipped_sum(_corners(bx, by, bhx, bhy, bc, bs), ax, ay, ac, as_,
                       ahx + _CLIP_EPS, ahy + _CLIP_EPS)
-    inter = torch.clamp_min(0.5 * (sa + sb), 0.0)
-    union = torch.clamp_min(aarea + barea - inter, 1e-8)
+    s = 0.5 * (sa + sb)
+    inter = torch.maximum(s, torch.zeros_like(s))
+    union = aarea + barea - inter
+    union = torch.maximum(union, torch.full_like(union, 1e-8))
     return inter / union

@@ -8,9 +8,17 @@ weight decay 0.01 on every parameter (optax.adamw decays with no mask),
 eps 1e-8, b2 0.999; the learning rate and b1 follow the one-cycle schedule
 at the count of updates done so far (0 for the first update), as optax's
 `inject_hyperparams` evaluates them; gradients are clipped to a global
-norm of 35 as optax.clip_by_global_norm clips them. Data parallelism, the
-`space` axis and the two-stage freeze are not ported yet (ROADMAP.md,
-queue 1).
+norm of 35 as optax.clip_by_global_norm clips them. Data parallelism and
+the `space` axis are not ported yet (ROADMAP.md, queue 1).
+
+A two-stage model (`models/two_stage.py`) adds the RoI head's loss and
+trains only `two_stage_trainable_mask`'s parameters, as the JAX
+package's `multi_transform` (train: clip + AdamW, freeze: `set_to_zero`,
+step.py:63-74) does: the optimizer holds only those, the clip's norm is
+theirs, frozen parameters get no update and no weight decay. The whole
+backward still runs, the `grad_norm` metric is over every gradient
+(`optax.global_norm(grads)`), and frozen BatchNorms update their running
+statistics, the model being in train mode as a whole.
 
 A first AdamW step moves every parameter by about lr * sign(g), so two
 runs whose gradients differ by rounding can move a parameter with a
@@ -35,10 +43,17 @@ ADAM_EPS = 1e-8
 
 def make_optimizer(cfg: ExperimentConfig, model: nn.Module,
                    total_steps: int) -> torch.optim.AdamW:
-    """AdamW over every parameter of `model`; each parameter group keeps
+    """AdamW over every parameter of `model`, or under the two-stage
+    schedule (`head.two_stage`, as the JAX `make_optimizer` reads it) only
+    over those of `two_stage_trainable_mask`; each parameter group keeps
     `total_steps`, the length of the one-cycle schedule."""
     o = cfg.train.optim
-    opt = torch.optim.AdamW(model.parameters(), lr=o.lr_max / o.div_factor,
+    params = list(model.parameters())
+    if cfg.model.head.two_stage:
+        from ..models.two_stage import two_stage_trainable_mask
+        names = two_stage_trainable_mask(model)
+        params = [p for n, p in model.named_parameters() if n in names]
+    opt = torch.optim.AdamW(params, lr=o.lr_max / o.div_factor,
                             betas=(o.moms[0], ADAM_B2), eps=ADAM_EPS,
                             weight_decay=o.weight_decay)
     for group in opt.param_groups:
@@ -60,14 +75,20 @@ def set_hyperparams(cfg: ExperimentConfig, optimizer: torch.optim.Optimizer,
                                              pct_start=o.pct_start), ADAM_B2)
 
 
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm), on
+    the device."""
+    # foreach ops: a few launches for all tensors (433 at full width), not
+    # a few per tensor
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
 def clip_by_global_norm(grads: List[torch.Tensor],
                         max_norm: float) -> torch.Tensor:
     """In place: g unchanged when the global norm is below max_norm, else
     g / norm * max_norm (optax.clip_by_global_norm). Returns the norm
     before clipping, on the device (no host sync)."""
-    # foreach ops: a few launches for all tensors (433 at full width), not
-    # a few per tensor
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm = global_norm(grads)
     clip = norm >= max_norm
     one = torch.ones_like(norm)
     # g / 1 * 1 is g exactly
@@ -79,26 +100,44 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 def forward_backward(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
     """Targets from batch["targets_raw"] on the device, the forward in the
     model's mode (with batch["bev_map"] for a bev_map config), the head
-    mode's loss and its backward into `.grad`. Returns the losses."""
+    mode's loss (plus the RoI head's, roi_cls_loss and roi_reg_loss, for a
+    two-stage model: JAX step.py:123-135) and its backward into `.grad`.
+    Returns the losses."""
     cfg = model.cfg
     targets = build_targets_batch(cfg, batch["targets_raw"])
-    preds = model(batch["points"], batch["points_valid"],
-                  batch.get("bev_map"))
-    losses = center_head_loss(cfg.model.head, preds, targets)
+    out = model(batch["points"], batch["points_valid"],
+                batch.get("bev_map"))
+    if cfg.model.two_stage_refine:
+        from ..models.two_stage import two_stage_loss
+        preds, det, roi = out
+        losses = center_head_loss(cfg.model.head, preds, targets)
+        rl = two_stage_loss(roi["logits"], roi["resid"], det.boxes,
+                            targets["gt_boxes"], targets["gt_valid"],
+                            det.valid)
+        losses = dict(losses, roi_cls_loss=rl["roi_cls_loss"],
+                      roi_reg_loss=rl["roi_reg_loss"],
+                      loss=losses["loss"] + rl["loss"])
+    else:
+        losses = center_head_loss(cfg.model.head, out, targets)
     losses["loss"].backward()
     return losses
 
 
 def apply_update(model: nn.Module, optimizer: torch.optim.Optimizer,
                  count: int) -> torch.Tensor:
-    """Clip the gradients in `.grad` and take the AdamW step of update
-    `count`. Returns the global gradient norm before clipping."""
+    """Clip the gradients in `.grad` of the optimizer's parameters and take
+    the AdamW step of update `count`. Returns the global norm of every
+    gradient of `model` before clipping (the optimizer's parameters are all
+    of them but for a two-stage model)."""
     cfg = model.cfg
     grads = [p.grad for p in model.parameters() if p.grad is not None]
-    norm = clip_by_global_norm(grads, cfg.train.optim.grad_clip_norm)
+    trained = [p.grad for g in optimizer.param_groups for p in g["params"]
+               if p.grad is not None]
+    norm = None if len(trained) == len(grads) else global_norm(grads)
+    clip_norm = clip_by_global_norm(trained, cfg.train.optim.grad_clip_norm)
     set_hyperparams(cfg, optimizer, count)
     optimizer.step()
-    return norm
+    return clip_norm if norm is None else norm
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -107,14 +146,15 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ({"points", "points_valid", "targets_raw"}, and "bev_map" for a
     bev_map config). `step` is the count of
     updates done before this one. Returns {loss, hm_loss, loc_loss,
-    grad_norm} as tensors on the device."""
+    grad_norm}, and roi_cls_loss and roi_reg_loss for a two-stage model,
+    as tensors on the device."""
     if not model.training:
         raise ValueError("train_step needs the model in train mode "
                          "(model.train()): eval BatchNorm would not learn "
                          "its statistics")
-    optimizer.zero_grad(set_to_none=True)
+    # every gradient, the frozen ones too: the grad_norm metric reads them
+    model.zero_grad(set_to_none=True)
     losses = forward_backward(model, batch)
     grad_norm = apply_update(model, optimizer, step)
-    return {"loss": losses["loss"].detach(),
-            "hm_loss": losses["hm_loss"].detach(),
-            "loc_loss": losses["loc_loss"].detach(), "grad_norm": grad_norm}
+    return {**{k: v.detach() for k, v in losses.items()},
+            "grad_norm": grad_norm}

@@ -144,6 +144,8 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
           resume: bool = False, hooks: Optional[List[Hook]] = None,
           val_fn: Optional[Callable[[TrainState], Dict]] = None,
           device=None, prefetch_depth: int = 2,
+          init_transform: Optional[Callable[[TrainState],
+                                            TrainState]] = None,
           log_fn: Callable[[str], None] = log.info) -> TrainState:
     """Run the schedule of `cfg.train.total_epochs` epochs over `batches`
     (an iterator of {"points", "points_valid", "targets_raw"} batches, with
@@ -154,12 +156,16 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
     a thread keeps that many batches ready ahead of the loop; 0 takes
     each batch from `batches` when the step needs it. At each epoch's end
     `val_fn(state)`, if given, runs with the model in eval mode and no
-    autograd, and its dict is logged. Returns the state after the last step
-    taken."""
+    autograd, and its dict is logged. `init_transform(state)`, if given,
+    runs after the build and before a resume or any step (e.g. grafting a
+    trained first stage into a two-stage model, JAX trainer.py:140-145).
+    Returns the state after the last step taken."""
     total_steps = steps_per_epoch * cfg.train.total_epochs
     dev = resolve_device(device)
     model = build_detector(cfg, device=dev, seed=cfg.train.seed).train()
     state = TrainState(0, model, make_optimizer(cfg, model, total_steps))
+    if init_transform is not None:
+        state = init_transform(state)
     ckpt = CheckpointManager(work_dir) if work_dir else None
     if resume and ckpt and ckpt.latest_step() is not None:
         state.step = ckpt.restore(model, state.optimizer)

@@ -13,8 +13,12 @@ modules (pillar reader, sparse middle encoder, neck, head with its
 `bev_conv`), plus the port-only `z_crush.{0,1}` keys of VoxelNet's z_crush
 ConvBNReLU and the DCN head's keys (the reference DCNSepHead's:
 `feature_adapt_{cls,reg}.{conv_offset,conv_adaption}`, `cls_head.{0,1,3}`,
-`task_head.<branch>`), which the JAX converter does not map. The widened
-vel and the multitask heads change shapes only. `flax_to_state_dict`
+`task_head.<branch>`), which the JAX converter does not map, and the
+two-stage head's `two_stage_{forecast,reverse}_conv.{0,1}` (the JAX
+converter maps them onto `forecast_conv.0/.1` and `reverse_conv.0/.1`,
+where forecast_feature's first conv also lands). A two-stage model's keys
+are these under `first_stage.`, and `roi_head.*`. The widened vel and the
+multitask heads change shapes only. `flax_to_state_dict`
 inverts the layout converters:
 
   flax Dense kernel (in, out)              -> torch Linear (out, in)
@@ -39,9 +43,18 @@ import torch
 from ..config import ExperimentConfig
 
 
-def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def load_reference_state_dict(path: str,
+                              cfg: Optional[ExperimentConfig] = None
+                              ) -> Dict[str, torch.Tensor]:
     """torch.load a reference checkpoint -> {key: tensor} on the CPU, with the
-    DDP `module.` prefix removed."""
+    DDP `module.` prefix removed. A two-stage `cfg` raises: the reference's
+    two-stage key layout is not mapped."""
+    if cfg is not None and cfg.model.two_stage_refine:
+        raise NotImplementedError(
+            "a reference two-stage .pth is not mapped onto the port's "
+            "first_stage. / roi_head. keys yet (ROADMAP.md, queue 1: long "
+            "tail); graft a single-stage checkpoint with "
+            "models/two_stage.py::adopt_first_stage")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt)
     return {k.removeprefix("module."): v for k, v in sd.items()
@@ -191,6 +204,15 @@ def _key_map(cfg: ExperimentConfig):
                 add(*_conv_bn_relu(ours_t + (f"forecast_conv{ci}",),
                                    f"{ref_t}.forecast_conv.{rc}",
                                    f"{ref_t}.forecast_conv.{rb}", bias=True))
+        if h.two_stage:
+            # the port's own keys: the JAX converter's forecast_conv.0/.1
+            # would collide with forecast_feature's first conv
+            heads = dict(h.common_heads)
+            for conv, pair in (("two_stage_forecast_conv", ("vel", "rot")),
+                               ("two_stage_reverse_conv", ("rvel", "rrot"))):
+                if all(k in heads for k in pair):
+                    add(*_conv_bn_relu(ours_t + (conv,), f"{ref_t}.{conv}.0",
+                                       f"{ref_t}.{conv}.1", bias=True))
         for name, (_ch, num_conv) in (list(h.common_heads)
                                       + [("hm", (0, h.num_hm_conv))]):
             branch(ours_t, ref_t, name, num_conv)
@@ -221,14 +243,34 @@ def _leaf(tree, path):
 def flax_to_state_dict(variables, cfg: ExperimentConfig
                        ) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} numpy trees of the JAX
-    PointPillarsDetector or VoxelNetDetector -> a state dict that the
-    port's detector takes with `load_state_dict(strict=True)`. Top-level
-    modules (`reader`, `middle`, `z_crush`, `neck`, `head`) absent from the
-    trees are left out, so the trees of one module alone, e.g.
-    {'params': {'neck': ...}, ...}, give that module's keys. A params-only
-    tree {'params': ...} maps to the parameter keys alone: gradients have
-    the params' structure, and every layout converter is linear, so a
-    gradient tree maps exactly as the weights do."""
+    PointPillarsDetector, VoxelNetDetector or TwoStageDetector -> a state
+    dict that the port's detector takes with `load_state_dict(strict=True)`.
+    Top-level modules (`reader`, `middle`, `z_crush`, `neck`, `head`;
+    `first_stage`, `roi_head`) absent from the trees are left out, so the
+    trees of one module alone, e.g. {'params': {'neck': ...}, ...}, give
+    that module's keys. A params-only tree {'params': ...} maps to the
+    parameter keys alone: gradients have the params' structure, and every
+    layout converter is linear, so a gradient tree maps exactly as the
+    weights do. A two-stage tree's `first_stage` maps as a single-stage
+    tree under `first_stage.`, its `roi_head` Denses onto the RoI head's
+    Linears."""
+    if cfg.model.two_stage_refine:
+        first = {t: v["first_stage"] for t, v in variables.items()
+                 if "first_stage" in v}
+        sd = {f"first_stage.{k}": v
+              for k, v in _single_stage_to_state_dict(first, cfg).items()}
+        for name, dense in variables["params"].get("roi_head", {}).items():
+            sd[f"roi_head.{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(dense["kernel"]).T,
+                                     dtype=np.float32))
+            sd[f"roi_head.{name}.bias"] = torch.from_numpy(
+                np.asarray(dense["bias"], dtype=np.float32).copy())
+        return sd
+    return _single_stage_to_state_dict(variables, cfg)
+
+
+def _single_stage_to_state_dict(variables, cfg: ExperimentConfig
+                                ) -> Dict[str, torch.Tensor]:
     param_entries, stat_entries = _key_map(cfg)
     sd: Dict[str, torch.Tensor] = {}
     for tree_name, entries in (("params", param_entries),
@@ -236,7 +278,7 @@ def flax_to_state_dict(variables, cfg: ExperimentConfig
         if tree_name not in variables:
             continue
         for path, ref_key, kind in entries:
-            if path[0] not in variables["params"]:
+            if path[0] not in variables.get("params", {}):
                 continue
             w = _TO_TORCH[kind](_leaf(variables[tree_name], path))
             sd[ref_key] = torch.from_numpy(

@@ -337,6 +337,8 @@ def eval_phases_on_the_cpu(train_phases_on_the_cpu, monkeypatch, tmp_path):
 
     def counting_k1(boxes, valid, thr):
         counting_k1.launches += 1
+        # K1's own dtype rule
+        assert boxes.dtype == torch.float32, boxes.dtype
         return pallas_nms.nms_alive_plain(boxes, valid, thr)
     counting_k1.launches = 0
     monkeypatch.setattr(pallas_nms, "rotate_nms_alive", counting_k1)
@@ -455,3 +457,70 @@ def test_head_mode_phases_rehearse_on_the_cpu(head_mode_phases_on_the_cpu):
     assert len(lines[1]["classes"]) == 10
     for ln in lines:
         assert os.path.exists(os.path.join(cs.ROOT, ln["metrics"]))
+
+
+@pytest.fixture
+def two_stage_phases_on_the_cpu(eval_phases_on_the_cpu, monkeypatch):
+    """chip_smoke's two-stage phases (26-28) on the CPU, on top of the
+    evaluation rehearsal: the two-stage configs at tiny_variant (pillars)
+    and the small VoxelNet of tests/test_torch_voxelnet.py, beside their
+    single-stage configs."""
+    from futuredet_torch import config
+    from tests.test_torch_two_stage import pp_config, vox_config
+    from tests.test_torch_voxelnet import voxelnet_config
+    unpatched = types.SimpleNamespace(get_config=get_config,
+                                      tiny_variant=config.tiny_variant)
+    small = {cs.NAME: config.tiny_variant(get_config(cs.NAME)),
+             cs.VOX_NAME: voxelnet_config(unpatched),
+             "pp_forecast_n3dtf_two_stage": pp_config(unpatched),
+             "forecast_n3dtf_two_stage": vox_config(unpatched)}
+    monkeypatch.setattr(config, "get_config", lambda name: small[name])
+    return eval_phases_on_the_cpu
+
+
+def test_two_stage_phases_rehearse_on_the_cpu(two_stage_phases_on_the_cpu,
+                                              tmp_path):
+    lines = two_stage_phases_on_the_cpu
+    dev = torch.device("cpu")
+    pp = cs.cli_pillar_path(dev, "cpu", str(tmp_path))
+    del lines[:]
+
+    two = cs.two_stage_path(dev, "cpu")
+    assert two == {"pp_forecast_n3dtf_two_stage": {"k1": 1, "k2": 0, "g": 7},
+                   "forecast_n3dtf_two_stage": {"k1": 1, "k2": 20, "g": 7}}
+    assert [ln["phase"] for ln in lines] == ["two_stage"] * 2
+    for ln in lines:
+        assert ln["hm_max_abs_err"] == 0.0 and not ln["let_off_at_the_cut"]
+        assert ln["proposals_matched"] == ln["proposals"] > 0
+        assert max(ln["roi_rel_err"].values()) == 0.0
+
+    del lines[:]
+    train = cs.two_stage_train_path(dev, "cpu")
+    assert train == {
+        "pp_forecast_n3dtf_two_stage": {"k1": 1, "k2_forward": 0,
+                                        "k2_dx": 0},
+        "forecast_n3dtf_two_stage": {"k1": 1, "k2_forward": 20,
+                                     "k2_dx": 19}}
+    assert [ln["phase"] for ln in lines] == [
+        "two_stage_train", "train_cpu_cross_check", "two_stage_train"]
+    for ln in (lines[0], lines[2]):
+        assert ln["trainable_tensors"] == cs.TWO_STAGE_TRAINABLE
+        assert not any(ln["hm_loss"])
+        assert {"decode_nms", "proposal_targets"} <= set(
+            ln["train_step_split_ms"])
+        roi = ln["repeated_batch_roi_cls_losses"]
+        assert len(roi) == cs.OVERFIT_STEPS and roi[-1] < roi[0]
+    assert lines[1]["reference"] == "cpu_float64"
+    assert lines[1]["card_vs_cpu32"]["worst_grad_ratio"] == 0.0
+
+    del lines[:]
+    cli = cs.two_stage_cli_path(dev, "cpu", pp["checkpoint_dir"], pp["mAP"])
+    name = "pp_forecast_n3dtf_two_stage"
+    assert cli == {f"{name}_cli_train": {"k1": cs.TWO_STAGE_CLI_EPOCHS,
+                                         "k2": 0},
+                   f"{name}_cli_eval": {"k1": 1, "k2": 0}}
+    (ln,) = lines
+    assert ln["train_launches_per_step"] == [(1, 0)] * \
+        cs.TWO_STAGE_CLI_EPOCHS
+    assert ln["tta_exit"] != "0"
+    assert os.path.exists(os.path.join(cs.ROOT, ln["metrics"]))

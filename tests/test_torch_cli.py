@@ -220,11 +220,6 @@ def test_the_cli_runs_on_the_card_by_default(tmp_path):
     (evaluate.main, ["--space", "2"], "DDP"),
     (evaluate.main, ["--coordinator_address", "localhost:1",
                      "--num_processes", "2"], "DDP"),
-    (evaluate.main, ["--model", "pp_forecast_n3dtf_two_stage"],
-     "item 1: two-stage"),
-    (train.main, ["--first_stage_checkpoint", "w"], "item 1: two-stage"),
-    (train.main, ["--model", "forecast_n3dtf_two_stage"],
-     "item 1: two-stage"),
     (train.main, ["--profile", "trace"], "long tail"),
     (train.main, ["--space", "2"], "DDP"),
     (train.main, ["--num_processes", "4", "--process_id", "1"], "DDP"),
@@ -516,3 +511,79 @@ def test_head_mode_evaluate_cli_runs(tmp_path, model, extra, caplog):
     if model == "forecast_n3dtfm":
         with pytest.raises(SystemExit, match="bev_map"):
             evaluate.main(argv + ["--tta", "map"])
+
+
+TWO_STAGE = "pp_forecast_n3dtf_two_stage"
+
+
+def test_two_stage_evaluate_cli_matches_the_jax_cli(tmp_path, monkeypatch):
+    """pp_forecast_n3dtf_two_stage: the RoI head's refined detections
+    (refined boxes, fused scores, the first stage's labels) the same as the
+    JAX CLI's per pseudo-task slice, and every summary value within 1e-6;
+    --tta on a two-stage config is refused, as the JAX CLI refuses it."""
+    monkeypatch.chdir(tmp_path)
+    compare_with_the_jax_cli(TWO_STAGE, ["--forecast_mode",
+                                         "velocity_dense"], True)
+    with pytest.raises(SystemExit, match="two-stage"):
+        evaluate.main(["--model", TWO_STAGE, "--tiny", "--device", "cpu",
+                       "--synthetic", "1", "--tta", "map"])
+
+
+def test_two_stage_train_cli_grafts_a_first_stage_and_resumes(tmp_path,
+                                                              caplog):
+    """cli.train of a tiny single-stage pp_forecast_n3dtf, then of its
+    two-stage config with --first_stage_checkpoint: the first stage starts
+    from the single-stage checkpoint (the two-stage convs and the RoI head
+    from their init), only the trainable subset moves, the refined
+    detections are validated, and a resume continues from the last
+    checkpoint with the optimizer's state of the subset."""
+    from futuredet_torch.models.two_stage import two_stage_trainable_mask
+    from futuredet_torch.train.checkpoints import CheckpointManager
+
+    caplog.set_level(logging.INFO, logger="futuredet_torch")
+    single = str(tmp_path / "single")
+    train.main(["--model", MODEL, "--tiny", "--device", "cpu",
+                "--synthetic", "2", "--epochs", "1", "--work_dir", single])
+    first = torch.load(os.path.join(single, "step_2.pt"),
+                       weights_only=True)["model"]
+    work = str(tmp_path / "two")
+    argv = ["--model", TWO_STAGE, "--tiny", "--device", "cpu",
+            "--synthetic", "2", "--epochs", "1", "--val_synthetic", "1",
+            "--work_dir", work, "--first_stage_checkpoint", single]
+    state = train.main(argv)
+    assert f"grafted first-stage checkpoint step 2 from {single}" \
+        in caplog.text
+    assert [m for m in caplog.messages if m.startswith("val @ epoch")]
+    mask = two_stage_trainable_mask(state.model)
+    after = state.model.state_dict()
+    for k, v in first.items():
+        key = "first_stage." + k
+        if key in mask or k.endswith("num_batches_tracked") \
+                or "running_" in k:
+            continue
+        assert torch.equal(after[key], v), key
+    assert sorted(os.listdir(work)) == ["step_2.pt"]
+    saved = torch.load(os.path.join(work, "step_2.pt"), weights_only=True)
+    assert len(saved["optimizer"]["param_groups"][0]["params"]) == 92
+    # the subset's optimizer state round-trips exactly
+    from futuredet_torch.config import get_config, tiny_variant
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.train.step import make_optimizer
+    cfg = tiny_variant(get_config(TWO_STAGE))
+    model = build_detector(cfg, device="cpu")
+    opt = make_optimizer(cfg, model, 2)
+    assert CheckpointManager(work).restore(model, opt) == 2
+    got = opt.state_dict()["state"]
+    assert len(got) == 92 and got.keys() == saved["optimizer"]["state"].keys()
+    for i, st in saved["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(got[i][k], v), (i, k)
+
+    # resume: one more epoch from step 2, the subset's optimizer restored
+    state2 = train.main(argv[:-2] + ["--epochs", "2", "--resume_from"])
+    assert "resumed from step 2" in caplog.text
+    assert state2.step == 4
+    assert CheckpointManager(work).all_steps() == [2, 4]
+    with pytest.raises(SystemExit, match="_two_stage"):
+        train.main(["--model", MODEL, "--tiny", "--device", "cpu",
+                    "--synthetic", "2", "--first_stage_checkpoint", single])

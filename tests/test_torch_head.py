@@ -5,7 +5,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from futuredet_tpu.config import HeadConfig
@@ -81,11 +80,3 @@ def test_seeded_init_sets_hm_bias_and_repeats():
         assert torch.equal(v, b[k]), k
     w = "bbox_head.shared_conv.0.weight"
     assert not torch.equal(b[w], c[w])
-
-
-@pytest.mark.parametrize("flag", ["two_stage"])
-def test_other_head_modes_raise(flag):
-    """The two-stage head waits for its slice (bev_map and dcn_head run:
-    tests/test_torch_head_modes.py)."""
-    with pytest.raises(NotImplementedError, match="item 1: two-stage"):
-        CenterHead(dataclasses.replace(HEAD, **{flag: True}))

@@ -99,9 +99,6 @@ def test_entry_points_refuse_what_is_not_ported():
         build_detector(vox.replace(model=dataclasses.replace(
             vox.model, middle="dense")), device="cpu")
     with pytest.raises(NotImplementedError):
-        build_detector(get_config("pp_forecast_n3dtf_two_stage"),
-                       device="cpu")
-    with pytest.raises(NotImplementedError):
         build_detector(cfg.replace(model=dataclasses.replace(
             cfg.model, compute_dtype="bfloat16")), device="cpu")
 

@@ -128,10 +128,3 @@ def test_loss_and_gradients_match_jax(mode):
             np.testing.assert_allclose(v.grad.numpy(), g, rtol=0,
                                        atol=GRAD_FRACTION * top,
                                        err_msg=f"{mode} task {t} {k}")
-
-
-def test_two_stage_weights_raise():
-    head = dataclasses.replace(
-        port_config.get_config("forecast_n3dtf").model.head, two_stage=True)
-    with pytest.raises(NotImplementedError, match="item 1: two-stage"):
-        center_head_loss(head, [], {"hm": torch.zeros(1)})

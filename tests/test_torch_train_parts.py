@@ -185,16 +185,6 @@ def test_center_head_loss_and_its_gradients_match_jax():
             assert np.abs(g).max() > 0, (t, k)
 
 
-def test_other_head_modes_raise():
-    """Every single-stage mode's loss runs
-    (tests/test_torch_loss_modes.py); the two-stage weights wait for their
-    slice."""
-    cfg = port_config.tiny_variant(port_config.get_config("forecast_n3"))
-    head = dataclasses.replace(cfg.model.head, two_stage=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        center_head_loss(head, [], {"hm": torch.zeros(1)})
-
-
 def test_schedules_match_jax_at_every_step():
     o = port_config.get_config("forecast_n3dtf").train.optim
     total = 50
