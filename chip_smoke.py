@@ -236,6 +236,39 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       under build/chip_smoke/, mAP beside phase 17's (no floor: the RoI
       head's init moves the boxes); --tta map on it exits non-zero.
 
+  The bf16 serving mode (compute_dtype, middle_sparse_dtype,
+  middle_gather_algo="window_bf16"; models/layers.py, models/middle.py)
+  and K2's bf16 family:
+  29. K2's bf16 family against its plain version on the 20 bf16 convs of
+      phase 30's first scene as the main path gave them (within K2_RTOL of
+      max(1, max|plain|), bit-identical launch to launch): ms a scene, the
+      plain version's, the stacked bf16 index_select + addmm into fp32
+      (library_ms), the bound at the bf16 tensor-core rate and at the
+      bytes of bf16 rows and weights.
+  30. each serving knob beside its fp32 config on phase 8's uniform_blobs
+      scene (VoxelNet) or phase 4's uniform scene (pillars), seeded
+      weights: (a) compute_dtype and middle_sparse_dtype bfloat16, (b)
+      window_bf16, (c) bf16_packed, and pp_forecast_n3dtf with
+      compute_dtype. Counts zeroed just before and read just after: K1
+      once, K2 20 a VoxelNet scene, all on the bf16 route under (a) and
+      (b), none under (c); every head map finite, fp32, and within
+      SERVING_RTOL of max(1, max|fp32|) of the card's fp32 forward of the
+      same weights. ms a scene (median of HEAD_MODE_REPS after
+      HEAD_MODE_WARMUP, synced) and peak MiB, fp32 / knob / knob / fp32 in
+      turns.
+
+  The VoxelNet dense middle forms (models/middle.py, models/detector.py):
+  31. the dense canvas's bytes at middle_dense_from_stage = DENSE_FROM,
+      then (d) dense_from_stage DENSE_FROM, fp32 and with
+      middle_dense_dtype bfloat16, and (e) middle="dense" on phase 8's
+      uniform_blobs scene: K1 once, K2 only for the sparse stages below
+      DENSE_FROM (none under (e)); the (d) middle's output within
+      DENSE_RTOL (bf16: DENSE_BF16_RTOL) of max(1, max|sparse|) of the
+      sparse middle's, z-mask and active cells equal; ms a scene and peak
+      MiB, the sparse config's ms beside.
+  32. one full-width B = 1 train step of (e) on phase 10's scene through
+      plain autograd: finite loss, no K2.
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
@@ -292,6 +325,7 @@ FP32_PEAK = 67e12         # H100 SXM fp32 vector peak, FLOP/s
 # H100 SXM dense TF32 tensor-core peak over the three MMAs of 3xTF32
 TF32X3_PEAK = 495e12 / 3
 HBM_RATE = 3.35e12        # H100 SXM device memory, bytes/s
+BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core peak, FLOP/s
 # fp32 operations of one K1 pair test (csrc/nms_kernel.cu): 8 clipped edges
 # of ~50 operations each, the victim's 4 corners (32), the two sums, eps
 # shifts and the IoU ratio (~20); the sin/cos of each box are not counted
@@ -363,6 +397,23 @@ ROI_RTOL = 1e-4
 PROPOSAL_MATCH_M = 1e-3    # a card proposal's CPU counterpart: its centre
 TWO_STAGE_TRAINABLE = 92   # 7 tasks x (vel, rot) x 6 tensors + the RoI's 8
 TWO_STAGE_CLI_EPOCHS = 3   # phase 28: one-step epochs of the train CLI
+# the bf16 serving phases (29-30): each knob beside its fp32 config, on
+# phase 8's uniform_blobs scene (VoxelNet) or phase 4's uniform scene
+# (pillars); the tags' letters are those of the docstring
+SERVING = (("a_bf16", VOX_NAME, {"compute_dtype": "bfloat16",
+                                 "middle_sparse_dtype": "bfloat16"}),
+           ("b_window_bf16", VOX_NAME, {"middle_gather_algo": "window_bf16"}),
+           ("c_bf16_packed", VOX_NAME, {"middle_sparse_dtype": "bf16_packed"}),
+           ("pillars_bf16", NAME, {"compute_dtype": "bfloat16"}))
+# every head map of a serving knob against the card's fp32 forward of the
+# same weights, of max(1, max|fp32|): the JAX package's own tolerance for
+# its bf16 serving mode (tests/test_models.py:126-151)
+SERVING_RTOL = 0.05
+# the dense middle forms (phase 31), against the sparse middle's output:
+# fp32 sums in another order (tests/test_dense_middle.py), and bf16 conv
+# operands
+DENSE_FROM = 2
+DENSE_RTOL, DENSE_BF16_RTOL = 2e-4, 5e-2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the metrics JSON and CSV the evaluate CLI writes in phases 17-19
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -679,22 +730,25 @@ def k1_margin_pairs(n, rng, ulps=(-2, -1, 0, 1, 2)):
 
 def k2_bound(features, table, weights, bias):
     """The least time of one gather-conv on these inputs: the larger of
-    its bytes (every input read once and the output written once) at the
-    memory rate and its 2 * present (k, n) pairs * Cin * Cout operations,
-    at the fp32 peak (bound_ms) and, for the wide family, which
-    does them as 3xTF32 on the tensor cores, at a third of the dense TF32
-    peak (tc_bound_ms; None for the narrow family)."""
+    its bytes (every input read once and the output written once: x and W
+    in their own type, 2 bytes for the bf16 family) at the memory rate and
+    its 2 * present (k, n) pairs * Cin * Cout operations, at the fp32 peak
+    (bound_ms; the bf16 tensor-core peak for the bf16 family) and, for the
+    wide family, which does them as 3xTF32 on the tensor cores, at a third
+    of the dense TF32 peak (tc_bound_ms; None for the other families)."""
     from futuredet_torch.ops.pallas_gather import k2_route
     V, cin = features.shape
     N, cout = table.shape[1], weights.shape[2]
     present = int(((table >= 0) & (table < V)).sum())
-    nbytes = 4 * (features.numel() + table.numel() + weights.numel()
-                  + (0 if bias is None else cout) + N * cout)
+    nbytes = (features.element_size() * (features.numel() + weights.numel())
+              + 4 * (table.numel() + (0 if bias is None else cout)
+                     + N * cout))
     bytes_ms = nbytes / HBM_RATE * 1e3
     ops = 2 * present * cin * cout
-    ops_ms = ops / FP32_PEAK * 1e3
-    route = k2_route(cin, cout)
-    return {"route": route, "present_pairs": present,
+    route = k2_route(cin, cout, features.dtype)
+    ops_ms = ops / (BF16_PEAK if route == "bf16" else FP32_PEAK) * 1e3
+    return {"route": route, "present_pairs": present, "bytes": nbytes,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "tc_bound_ms": (max(bytes_ms, ops / TF32X3_PEAK * 1e3)
@@ -703,19 +757,23 @@ def k2_bound(features, table, weights, bias):
 
 def k2_library_call(features, table, weights, bias):
     """The stacked form as two PyTorch calls, a yardstick that no path
-    calls: index_select of the 27*N rows (n-major), then one fp32 mm (addmm
-    with the bias) of the (N, 27*Cin) block. The flat table and the padded
-    features are made outside the timed function."""
+    calls: index_select of the 27*N rows (n-major), then one mm (addmm
+    with the bias) of the (N, 27*Cin) block, fp32, or for bf16 inputs
+    bf16 into an fp32 output (addmm's out_dtype). The flat table and the
+    padded features are made outside the timed function."""
     V, cin = features.shape
     N, cout = table.shape[1], weights.shape[2]
     padded = torch.cat([features, features.new_zeros(1, cin)])
     flat = table.t().reshape(-1).contiguous()
     w2 = weights.reshape(27 * cin, cout)
-    b = bias if bias is not None else features.new_zeros(cout)
+    b = bias if bias is not None else torch.zeros(
+        cout, dtype=torch.float32, device=features.device)
+    kw = ({"out_dtype": torch.float32}
+          if features.dtype == torch.bfloat16 else {})
 
     def fn():
         return torch.addmm(b, padded.index_select(0, flat).view(N, 27 * cin),
-                           w2)
+                           w2, **kw)
     return fn
 
 
@@ -3342,6 +3400,256 @@ def two_stage_cli_path(dev, card, pp_dir, pp_map):
             f"{name}_cli_eval": {"k1": total[0], "k2": total[1]}}
 
 
+def knob_config(base_name, change, tag):
+    """head_mode_config(base_name) with the model knobs `change`."""
+    import dataclasses
+    base = head_mode_config(base_name)
+    return base, base.replace(name=f"{base_name}+{tag}",
+                              model=dataclasses.replace(base.model, **change))
+
+
+def maps_rel_err(preds, ref):
+    """max over the head maps of max|preds - ref| / max(1, max|ref|)."""
+    return max(float((p[k].float() - r[k].float()).abs().max())
+               / max(1.0, float(r[k].float().abs().max()))
+               for p, r in zip(preds, ref) for k in r)
+
+
+def serving_path(dev, card):
+    """Phases 29-30. Returns {"k2_bf16": the bf16 family's numbers on (a)'s
+    20 convs, "paths": per knob {"k1", "k2", "k2_bf16"}}."""
+    from futuredet_torch.eval.decode import decode_and_nms
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.ops import sparse_conv as sc_mod
+
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    recorded = []
+
+    def recorder(f, t, w, b=None):
+        recorded.append(tuple(None if a is None else a.clone()
+                              for a in (f, t, w, b)))
+        return k2(f, t, w, b)
+
+    paths = {}
+    for tag, base_name, change in SERVING:
+        base, cfg = knob_config(base_name, change, tag)
+        vox = cfg.model.detector == "voxelnet"
+        pts, valid, _ = head_mode_scene(cfg)
+        inputs = (torch.from_numpy(pts).to(dev),
+                  torch.from_numpy(valid).to(dev))
+        models = {"fp32": (build_detector(base, device=dev, seed=0), base),
+                  tag: (build_detector(cfg, device=dev, seed=0), cfg)}
+
+        def run(key):
+            m, c = models[key]
+            with torch.no_grad():
+                preds = m(*inputs)
+                return preds, decode_and_nms(c, preds)
+
+        # 30. the main path: counts zeroed just before, read just after
+        if tag == "a_bf16":
+            sc_mod.gather_conv = recorder
+        try:
+            pallas_gather.reset_launches()
+            k1.launches = 0
+            preds, det = run(tag)
+            torch.cuda.synchronize()
+            n1, n2 = k1.launches, k2.launches
+            by_route = dict(k2.launches_by_route)
+        finally:
+            sc_mod.gather_conv = k2
+        bf16_route = tag in ("a_bf16", "b_window_bf16")
+        check(n1 == 1, f"{cfg.name}: K1 launched {n1} times")
+        check(n2 == (20 if vox else 0), f"{cfg.name}: K2 launched {n2} times")
+        check(by_route["bf16"] == (20 if bf16_route else 0),
+              f"{cfg.name}: K2 routes {by_route}")
+        for p in preds:
+            for k, t in p.items():
+                check(bool(torch.isfinite(t).all()), f"{cfg.name} {k}")
+                check(k == "feats" or t.dtype == torch.float32,
+                      f"{cfg.name} {k} is {t.dtype}")
+        check(bool(torch.isfinite(det.boxes).all()
+                   and torch.isfinite(det.scores).all()),
+              f"{cfg.name} detections not finite")
+        ref, ref_det = run("fp32")
+        err = maps_rel_err(preds, ref)
+        check(err <= SERVING_RTOL, f"{cfg.name}: head maps {err} of max "
+              f"from the fp32 forward")
+        # times in turns: fp32, knob, knob, fp32
+        times, peak = {k: [] for k in models}, dict.fromkeys(models, 0.0)
+        for key in ("fp32", tag, tag, "fp32"):
+            torch.cuda.reset_peak_memory_stats()
+            times[key].append(time_host(lambda key=key: run(key),
+                                        HEAD_MODE_WARMUP, HEAD_MODE_REPS))
+            peak[key] = max(peak[key],
+                            torch.cuda.max_memory_allocated() / 2**20)
+        emit({"phase": "serving", "model": cfg.name, "card": card,
+              "knobs": change,
+              "scene": "uniform_blobs" if vox else "uniform",
+              "k1_launches": n1, "k2_launches": n2,
+              "k2_launches_by_route": by_route,
+              "head_maps_rel_err_vs_fp32": err, "rtol": SERVING_RTOL,
+              "detections": int(det.valid.sum()),
+              "detections_fp32": int(ref_det.valid.sum()),
+              "ms_per_scene_turns": times[tag],
+              "fp32_ms_per_scene_turns": times["fp32"],
+              "peak_mib": peak[tag], "fp32_peak_mib": peak["fp32"],
+              "warmup": HEAD_MODE_WARMUP, "reps": HEAD_MODE_REPS})
+        paths[cfg.name] = {"k1": n1, "k2": n2, "k2_bf16": by_route["bf16"]}
+        del models
+
+    # 29. the bf16 family on (a)'s 20 convs, as the main path gave them ----
+    check(len(recorded) == 20 and all(a[0].dtype == torch.bfloat16
+                                      for a in recorded),
+          f"{len(recorded)} bf16 convs recorded")
+    convs, k2_err = [], 0.0
+    for i, args in enumerate(recorded):
+        line, ok, err = k2_compare(*args)
+        line["conv"] = i
+        line["bit_identical"] = bool(torch.equal(k2(*args), k2(*args)))
+        check(ok and line["bit_identical"],
+              f"K2's bf16 family on conv {i}: {line}")
+        k2_err = max(k2_err, err)
+        lib = k2_library_call(*args)
+        plain = pallas_gather.gather_conv_plain(*args)
+        line["library_rel_err"] = float((lib() - plain).abs().max()) / max(
+            1.0, float(plain.abs().max()))
+        line.update(ms=time_device(lambda a=args: k2(*a)),
+                    plain_ms=time_device(
+                        lambda a=args: pallas_gather.gather_conv_plain(*a)),
+                    library_ms=time_device(lib))
+        convs.append(line)
+    total = {k: sum(c[k] for c in convs)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    ops_share = sum(c["bound_ms"] for c in convs
+                    if c["bound_by"] == "operations") / total["bound_ms"]
+    emit({"phase": "k2_bf16_vs_plain", "model": VOX_NAME + "+a_bf16",
+          "card": card, "rtol_of_max_plain": K2_RTOL, "k2_per_scene": total,
+          "convs": convs, "warmup": WARMUP, "reps": REPS})
+    return {"k2_bf16": {"max_abs_err": k2_err, **total,
+                        "bound_by": ("operations" if ops_share >= 0.5
+                                     else "bytes")},
+            "paths": paths}
+
+
+def dense_canvas_bytes(cfg):
+    """The bytes of the dense stages' fp32 tensors at DENSE_FROM: the
+    scattered canvas of the last sparse stage and each dense stage's
+    conv output, with the stage's mask."""
+    from futuredet_torch.models.middle import stage_pads
+    from futuredet_torch.ops.sparse_conv import out_dims_of
+    gx, gy, gz = cfg.voxel.grid_size
+    dims, ch = (gz + 1, gy, gx), cfg.model.middle_channels
+    out = {}
+    for s in range(1, 4):
+        if s == DENSE_FROM:
+            out["canvas_in"] = 4 * math.prod(dims) * ch[s - 1]
+        dims = out_dims_of(dims, stage_pads(s, dims))
+        if s >= DENSE_FROM:
+            out[f"stage{s}_out"] = (4 * ch[s] + 1) * math.prod(dims)
+    return out
+
+
+def dense_middle_path(dev, card):
+    """Phases 31-32. Returns per path {"k1", "k2"}."""
+    from futuredet_torch.eval.decode import decode_and_nms
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.train.step import make_optimizer, train_step
+
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    base = head_mode_config(VOX_NAME)
+    pts, valid, _ = head_mode_scene(base)
+    inputs = (torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev))
+    sparse = build_detector(base, device=dev, seed=0)
+    with torch.no_grad():
+        feats, vm = sparse.voxelize(*inputs)
+        want, want_z = sparse.backbone(feats, vm.coords, vm.batch, 1)
+    sites = list(sparse.backbone.site_counts)
+    canvas = dense_canvas_bytes(base)
+    emit({"phase": "dense_canvas", "model": VOX_NAME, "card": card,
+          "dense_from_stage": DENSE_FROM, "sites_per_stage": sites,
+          "bytes": canvas, "mib": sum(canvas.values()) / 2**20})
+    out = {}
+    forms = (("d_dense_from2", {"middle_dense_from_stage": DENSE_FROM},
+              DENSE_RTOL),
+             ("d_dense_from2_bf16", {"middle_dense_from_stage": DENSE_FROM,
+                                     "middle_dense_dtype": "bfloat16"},
+              DENSE_BF16_RTOL),
+             ("e_dense", {"middle": "dense"}, None))
+    for tag, change, rtol in forms:
+        _, cfg = knob_config(VOX_NAME, change, tag)
+        model = build_detector(cfg, device=dev, seed=0)
+
+        def run(m=model, c=cfg):
+            with torch.no_grad():
+                preds = m(*inputs)
+                return preds, decode_and_nms(c, preds)
+
+        pallas_gather.reset_launches()
+        k1.launches = 0
+        preds, det = run()
+        torch.cuda.synchronize()
+        n1, n2 = k1.launches, k2.launches
+        n_sparse = 5 * DENSE_FROM if rtol is not None else 0
+        check(n1 == 1, f"{cfg.name}: K1 launched {n1} times")
+        check(n2 == n_sparse and k2.launches_by_route["bf16"] == 0,
+              f"{cfg.name}: K2 launched {n2} times "
+              f"{k2.launches_by_route}")
+        check(all(bool(torch.isfinite(t).all()) for p in preds
+                  for t in p.values()), f"{cfg.name}: maps not finite")
+        line = {"phase": "dense_middle", "model": cfg.name, "card": card,
+                "knobs": change, "scene": "uniform_blobs",
+                "k1_launches": n1, "k2_launches": n2,
+                "detections": int(det.valid.sum())}
+        if rtol is not None:
+            # the middle's output and z-mask against the sparse middle's
+            with torch.no_grad():
+                got, got_z = model.backbone(feats, vm.coords, vm.batch, 1)
+            err = float((got - want).abs().max())
+            tol = rtol * max(1.0, float(want.abs().max()))
+            check(err <= tol and torch.equal(got_z, want_z),
+                  f"{cfg.name}: middle {err} (tol {tol}), z-mask equal "
+                  f"{torch.equal(got_z, want_z)}")
+            check(model.backbone.site_counts == sites,
+                  f"{cfg.name}: active cells {model.backbone.site_counts}")
+            line.update(middle_max_abs_err=err, middle_tol=tol,
+                        zmask_equal=True)
+        torch.cuda.reset_peak_memory_stats()
+        line["ms_per_scene"] = time_host(run, HEAD_MODE_WARMUP,
+                                         HEAD_MODE_REPS)
+        line["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        if tag == "e_dense":
+            # 32. one B = 1 train step through plain autograd
+            model.train()
+            opt = make_optimizer(cfg, model, 10)
+            batch = train_batch(cfg, TRAIN_SEED, dev, TRAIN_CLUTTER)
+            pallas_gather.reset_launches()
+            k1.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = train_step(model, opt, batch, 0)
+            loss = float(m["loss"])
+            line.update(train_step_s=time.perf_counter() - t0,
+                        train_loss=loss, train_grad_norm=float(
+                            m["grad_norm"]),
+                        train_peak_mib=torch.cuda.max_memory_allocated()
+                        / 2**20, train_k1=k1.launches,
+                        train_k2=k2.launches)
+            check(math.isfinite(loss) and k2.launches == 0,
+                  f"{cfg.name}: train step loss {loss}, K2 {k2.launches}")
+        line.update(warmup=HEAD_MODE_WARMUP, reps=HEAD_MODE_REPS)
+        emit(line)
+        out[cfg.name] = {"k1": n1, "k2": n2}
+        del model
+    sparse_ms = time_host(lambda: decode_and_nms(base, sparse(*inputs)),
+                          HEAD_MODE_WARMUP, HEAD_MODE_REPS)
+    emit({"phase": "dense_middle", "model": VOX_NAME, "card": card,
+          "ms_per_scene_sparse_beside": sparse_ms})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3398,9 +3706,11 @@ def main() -> int:
         two = two_stage_path(dev, card)
         two_train = two_stage_train_path(dev, card)
         two_cli = two_stage_cli_path(dev, card, pp_dir, pp_map)
+        serving = serving_path(dev, card)
+        dense = dense_middle_path(dev, card)
 
     evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta,
-             **nusc, **modes_cli, **two_cli,
+             **nusc, **modes_cli, **two_cli, **serving["paths"], **dense,
              **{f"{n}_head_mode": v for n, v in modes.items()},
              **{f"{n}_head_mode_train": {"k1": v["k1"], "k2": v["k2_forward"]
                                          + v["k2_dx"]}
@@ -3412,7 +3722,7 @@ def main() -> int:
     emit({"phase": "total", "script_s": round(time.perf_counter() - T_START,
                                               1)})
     print(card, flush=True)
-    k2 = vox["k2"]
+    k2, bf16 = vox["k2"], serving["k2_bf16"]
     emit({"kernels": [{
         "name": "K1 rotated NMS survivor mask",
         "route": "cuda", "source": "futuredet_torch/csrc/nms_kernel.cu",
@@ -3454,7 +3764,20 @@ def main() -> int:
         "train_per_step": {k: train[k] for k in (
             "train_step_ms", "k2_forward_ms", "k2_dx_ms", "plain_dx_ms",
             "library_dx_ms", "dw_db_ms", "k2_dx_bound_ms",
-            "k2_dx_tc_bound_ms", "dw_db_bound_ms")}}]})
+            "k2_dx_tc_bound_ms", "dw_db_bound_ms")}}, {
+        "name": "K2 sparse gather-conv, bf16 family",
+        "route": "cuda",
+        "source": "futuredet_torch/csrc/gather_conv_kernel.cu",
+        "replaces": "futuredet_tpu/ops/pallas_gather.py:49",
+        "launches": sum(v["k2_bf16"] for v in serving["paths"].values()),
+        "launches_by_path": {p: v["k2_bf16"]
+                             for p, v in serving["paths"].items()},
+        "matched": True, "max_abs_err": bf16["max_abs_err"],
+        "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
+        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+        "library_ms": bf16["library_ms"],
+        "times_are": "sums over the 20 bf16 convs of one scene under "
+                     "compute_dtype and middle_sparse_dtype bfloat16"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

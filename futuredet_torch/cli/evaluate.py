@@ -55,7 +55,7 @@ CSV_HEADER = ["CLASS", "mAP", "mAR", "mFAP", "mFAR", "mAAP", "mAAR", "ATE",
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate a futuredet_torch "
                                             "model")
-    p.add_argument("--model", default="pp_forecast_n3dtf")
+    p.add_argument("--model", default="forecast_n0")
     p.add_argument("--experiment", default="FutureDetection")
     p.add_argument("--dataset", default="nusc")
     p.add_argument("--architecture", default="centerpoint")

@@ -44,8 +44,9 @@ log = logging.getLogger(__name__)
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a futuredet_torch model")
-    p.add_argument("--model", default="pp_forecast_n3dtf",
-                   help="config name (forecast_n3dtf, pp_forecast_n3dtf, ...)")
+    p.add_argument("--model", default="forecast_n0",
+                   help="config name (forecast_n0/n3/n3dtf[m], "
+                        "pedestrian_*, pp_*, *_two_stage)")
     p.add_argument("--experiment", default="FutureDetection")
     p.add_argument("--dataset", default="nusc")
     p.add_argument("--architecture", default="centerpoint")
@@ -84,6 +85,8 @@ def parse_args(argv=None):
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--tiny", action="store_true",
                    help="shrunken geometry for smoke tests")
+    p.add_argument("--debug", action="store_true",
+                   help="accepted as the JAX CLI accepts it; reads nothing")
     p.add_argument("--profile", default=None, help="trace dir (not ported)")
     p.add_argument("--tensorboard", action="store_true",
                    help="log scalars to {work_dir}/tb (ref torchie "

@@ -12,7 +12,7 @@ Module layout = reference keys: `blocks.{i}` is
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,8 +26,11 @@ class RPN(nn.Module):
                  ds_strides: Tuple[int, ...] = (1, 2),
                  ds_filters: Tuple[int, ...] = (128, 256),
                  us_strides: Tuple[float, ...] = (1, 2),
-                 us_filters: Tuple[int, ...] = (256, 256)):
+                 us_filters: Tuple[int, ...] = (256, 256),
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        cd = dict(compute_dtype=compute_dtype)
         self.upsample_start = len(layer_nums) - len(us_strides)
         blocks, deblocks = [], []
         cin = in_channels
@@ -36,19 +39,20 @@ class RPN(nn.Module):
             # explicit pad + unpadded conv: the reference's stem structure
             layers = [nn.ZeroPad2d(1),
                       *conv_bn_relu(cin, c, 3, ds_strides[i], bias=False,
-                                    padding=0, conv=SplitInputConv2d)]
+                                    padding=0, conv=SplitInputConv2d, **cd)]
             for _ in range(n):
-                layers += conv_bn_relu(c, c, 3, 1, bias=False)
+                layers += conv_bn_relu(c, c, 3, 1, bias=False, **cd)
             blocks.append(nn.Sequential(*layers))
             k = i - self.upsample_start
             if k >= 0:
                 s = us_strides[k]
                 if s > 1:
-                    deblocks.append(DeconvBNReLU(c, us_filters[k], int(s)))
+                    deblocks.append(DeconvBNReLU(c, us_filters[k], int(s),
+                                                 **cd))
                 else:
                     st = int(round(1 / s))
                     deblocks.append(ConvBNReLU(c, us_filters[k], st, st,
-                                               bias=False))
+                                               bias=False, **cd))
             cin = c
         self.blocks = nn.ModuleList(blocks)
         self.deblocks = nn.ModuleList(deblocks)
@@ -60,4 +64,5 @@ class RPN(nn.Module):
             k = i - self.upsample_start
             if k >= 0:
                 ups.append(self.deblocks[k](x))
-        return torch.cat(ups, dim=1) if ups else x
+        x = torch.cat(ups, dim=1) if ups else x
+        return x if self.compute_dtype is None else x.float()

@@ -19,6 +19,13 @@ Each SepHead branch is its own conv tower, as in the reference. The JAX
 package fuses branches into one wide conv on the TPU; that is a TPU
 formulation over the same parameters and is not ported. Convs run NCHW;
 `CenterHead.forward` returns dicts of NHWC maps, the JAX layout.
+
+`compute_dtype` (bf16 serving, `futuredet_tpu/models/center_head.py:
+84-170`) runs shared_conv, forecast_conv and every branch tower in it,
+and casts each head output back to fp32, so decode and NMS read fp32
+maps; `feats` stays in it. As in the JAX head, `bev_conv`, the two-stage
+shared convs and the whole DCNSepHead stay fp32, promoting their bf16
+input.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from torch import nn
 
 from ..config import HeadConfig
 from ..ops.deform import deform_conv2d
-from .layers import ConvBNReLU, conv_bn_relu
+from .layers import Conv2d, ConvBNReLU, conv_bn_relu
 
 Heads = Tuple[Tuple[str, Tuple[int, int]], ...]
 
@@ -52,8 +59,11 @@ class SepHead(nn.Module):
     def __init__(self, in_channels: int, heads: Heads, head_conv: int = 64,
                  final_kernel: int = 3, init_bias: float = -2.19,
                  forecast_feature: bool = False, wide_head: bool = False,
-                 two_stage: bool = False):
+                 two_stage: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        cd = dict(compute_dtype=compute_dtype)
         self.head_names = [h for h, _ in heads]
         self.forecast_feature = forecast_feature
         self.init_bias = init_bias
@@ -61,8 +71,8 @@ class SepHead(nn.Module):
         cin = in_channels
         if forecast_feature:
             self.forecast_conv = nn.Sequential(
-                *conv_bn_relu(cin, head_conv, 3, 1, bias=True),
-                *conv_bn_relu(head_conv, head_conv, 3, 1, bias=True))
+                *conv_bn_relu(cin, head_conv, 3, 1, bias=True, **cd),
+                *conv_bn_relu(head_conv, head_conv, 3, 1, bias=True, **cd))
             cin = head_conv
         # branch -> the shared two-stage conv it reads (ref :102-117)
         self.src_of: Dict[str, str] = {}
@@ -78,9 +88,9 @@ class SepHead(nn.Module):
             c = head_conv if name in self.src_of else cin
             for _ in range(num_conv - 1):
                 layers += conv_bn_relu(c, branch_conv, final_kernel, 1,
-                                       bias=True)
+                                       bias=True, **cd)
                 c = branch_conv
-            layers.append(nn.Conv2d(c, classes, final_kernel, padding=p))
+            layers.append(Conv2d(c, classes, final_kernel, padding=p, **cd))
             self.add_module(name, nn.Sequential(*layers))
 
     @torch.no_grad()
@@ -98,11 +108,12 @@ class SepHead(nn.Module):
                 for conv in dict.fromkeys(self.src_of.values())}
         for name in self.head_names:
             inp = srcs[self.src_of[name]] if name in self.src_of else x
-            out[name] = getattr(self, name)(inp)
+            y = getattr(self, name)(inp)
+            out[name] = y if self.compute_dtype is None else y.float()
         return out
 
 
-class DeformConv2d(nn.Conv2d):
+class DeformConv2d(Conv2d):
     """A 3x3 deformable conv without bias (ref DeformConv): Conv2d's
     weight (Cout, Cin, 3, 3) and key, `forward(x, offsets)`."""
 
@@ -122,7 +133,7 @@ class FeatureAdaption(nn.Module):
 
     def __init__(self, cin: int, cout: int, deformable_groups: int = 4):
         super().__init__()
-        self.conv_offset = nn.Conv2d(cin, deformable_groups * 2 * 9, 1)
+        self.conv_offset = Conv2d(cin, deformable_groups * 2 * 9, 1)
         self.conv_adaption = DeformConv2d(cin, cout, deformable_groups)
 
     @torch.no_grad()
@@ -149,7 +160,7 @@ class DCNSepHead(nn.Module):
         self.feature_adapt_reg = FeatureAdaption(in_channels, in_channels)
         self.cls_head = nn.Sequential(
             *conv_bn_relu(in_channels, head_conv, 3, 1, bias=True),
-            nn.Conv2d(head_conv, num_cls, 3, padding=1))
+            Conv2d(head_conv, num_cls, 3, padding=1))
         self.task_head = SepHead(in_channels, heads, head_conv=head_conv,
                                  final_kernel=final_kernel,
                                  init_bias=init_bias)
@@ -161,13 +172,16 @@ class DCNSepHead(nn.Module):
         self.feature_adapt_reg.reset_init()
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        # fp32 under compute_dtype too, as the JAX DCNSepHead
+        x = x.to(self.cls_head[0].weight.dtype)
         out = self.task_head(self.feature_adapt_reg(x))
         out["hm"] = self.cls_head(self.feature_adapt_cls(x))
         return out
 
 
 class CenterHead(nn.Module):
-    def __init__(self, cfg: HeadConfig):
+    def __init__(self, cfg: HeadConfig,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.dcn_head and cfg.forecast_feature:
             raise ValueError("dcn_head gives no forecast features: it takes "
@@ -175,7 +189,7 @@ class CenterHead(nn.Module):
         self.cfg = cfg
         share = cfg.effective_share_channel
         self.shared_conv = ConvBNReLU(cfg.in_channels, share, 3, 1,
-                                      bias=True)
+                                      bias=True, compute_dtype=compute_dtype)
         if cfg.bev_map:
             # ref :338-343: 1 -> 16 -> 32 -> share on the (B, H, W, 1) map
             self.bev_conv = nn.Sequential(
@@ -194,7 +208,8 @@ class CenterHead(nn.Module):
                 tasks.append(SepHead(
                     in_ch, heads, head_conv=share, init_bias=cfg.init_bias,
                     forecast_feature=cfg.forecast_feature,
-                    wide_head=cfg.wide_head, two_stage=cfg.two_stage))
+                    wide_head=cfg.wide_head, two_stage=cfg.two_stage,
+                    compute_dtype=compute_dtype))
         self.tasks = nn.ModuleList(tasks)
 
     @staticmethod
@@ -229,7 +244,9 @@ class CenterHead(nn.Module):
             if bev_map is None:
                 raise ValueError("this head is bev_map-conditioned: pass "
                                  "the (B, H, W, 1) ego map")
-            x = x + self.bev_conv(bev_map.permute(0, 3, 1, 2).to(x.dtype))
+            # fp32 (the JAX bev_conv has no compute_dtype): the sum
+            # promotes a bf16 x to fp32
+            x = x + self.bev_conv(bev_map.permute(0, 3, 1, 2))
         rets: List[Dict[str, torch.Tensor]] = []
         for i, task in enumerate(self.tasks):
             inp = x

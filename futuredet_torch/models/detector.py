@@ -11,6 +11,15 @@ reference det3d keys and a reference `.pth` loads with
 `two_stage_refine` config builds `models/two_stage.py::TwoStageDetector`
 around one of these (`first_stage`), whose neck output it reads through
 `return_bev`.
+
+The serving knobs of the JAX package run here too: `compute_dtype=
+"bfloat16"` (bf16 z_crush, RPN and head towers, `models/layers.py`),
+`middle_gather_algo`, `middle_sparse_dtype` ("bfloat16", "bf16_packed")
+and the dense middle forms (`middle_dense_from_stage`,
+`middle_dense_dtype`; `models/middle.py`) and `middle="dense"`, the
+JAX `_dense_path` (mean VFE, `voxel_embed`, 8 z-groups scattered at
+stride 4, `mid_conv0/1`, then the RPN and the head, all fp32 whatever
+`compute_dtype` says, as there). Training under a bf16 knob raises.
 """
 from __future__ import annotations
 
@@ -24,13 +33,34 @@ from ..ops.sparse_conv import out_dims_of
 from ..ops.voxelize import PointVoxelMap, point_voxel_map, run_means
 from .backbone2d import RPN
 from .center_head import CenterHead
-from .layers import ConvBNReLU, init_weights_
+from .layers import (ConvBNReLU, SplitInputConv2d, init_weights_,
+                     torch_dtype)
 from .middle import SparseConv, SparseMiddleEncoder, stage_pads
 from .readers import PillarFeatureNetDirect
 
-# config values that only choose among exact TPU formulations of the same
-# sparse conv sums; every one of them runs kernel K2 here
-EXACT_GATHER_ALGOS = ("xpack", "loop", "stacked", "window", "hybrid")
+# middle_gather_algo values: exact TPU formulations of the same sparse conv
+# sums, and window_bf16, the bf16 mode of the Pallas kernel (K2's bf16
+# family here)
+GATHER_ALGOS = ("xpack", "loop", "stacked", "window", "window_bf16",
+                "hybrid")
+SPARSE_DTYPES = (None, "bfloat16", "bf16_packed")
+DENSE_ZGROUPS, DENSE_EMBED = 8, 32     # the JAX _dense_path's z-groups, width
+
+
+def refuse_bf16_training(cfg: ExperimentConfig) -> None:
+    """Training under a knob that puts bf16 arithmetic into the forward is
+    not ported: K2's bf16 family has no input gradient yet and the towers'
+    bf16 backward is not held to the JAX step."""
+    m = cfg.model
+    knobs = [k for k, on in (("compute_dtype", m.compute_dtype is not None),
+                             ("middle_sparse_dtype",
+                              m.middle_sparse_dtype == "bfloat16"),
+                             ("middle_dense_dtype",
+                              m.middle_dense_dtype is not None)) if on]
+    if knobs:
+        raise NotImplementedError(
+            f"training under {', '.join(knobs)}: bf16 serving only "
+            "(ROADMAP.md, queue 1: bf16 training)")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -55,12 +85,9 @@ def _with_bev(preds: List[Dict[str, torch.Tensor]], x: torch.Tensor,
 class PointPillarsDetector(nn.Module):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
-        if cfg.model.compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={cfg.model.compute_dtype!r}: the port runs "
-                "fp32 only (bf16 towers are queued in ROADMAP.md)")
         self.cfg = cfg
         c = cfg
+        cd = torch_dtype(c.model.compute_dtype)
         gx, gy, _ = c.voxel.grid_size
         self.reader = PillarFeatureNetDirect(
             num_input_features=c.model.num_input_features,
@@ -72,8 +99,9 @@ class PointPillarsDetector(nn.Module):
         r = c.model.rpn
         self.neck = RPN(c.model.pillar_filters[-1], layer_nums=r.layer_nums,
                         ds_strides=r.ds_strides, ds_filters=r.ds_filters,
-                        us_strides=r.us_strides, us_filters=r.us_filters)
-        self.bbox_head = CenterHead(c.model.head)
+                        us_strides=r.us_strides, us_filters=r.us_filters,
+                        compute_dtype=cd)
+        self.bbox_head = CenterHead(c.model.head, compute_dtype=cd)
 
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
                 bev_map: Optional[torch.Tensor] = None,
@@ -82,6 +110,8 @@ class PointPillarsDetector(nn.Module):
         1) ego map of a bev_map config -> per task a dict of NHWC head
         maps; with `return_bev`, (those, the (B, H, W, C) neck output) for
         the second stage's pooling."""
+        if self.training:
+            refuse_bf16_training(self.cfg)
         canvas = self.reader(points, points_valid)            # (B, H, W, C)
         x = self.neck(canvas.permute(0, 3, 1, 2))
         return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
@@ -89,50 +119,61 @@ class PointPillarsDetector(nn.Module):
 
 class VoxelNetDetector(nn.Module):
     """Mean-VFE voxels -> sparse middle encoder -> z_crush -> RPN ->
-    CenterHead (ref det3d/models/detectors/voxelnet.py + scn.py). After a
-    forward, `num_voxels` holds the voxels per sample and
+    CenterHead (ref det3d/models/detectors/voxelnet.py + scn.py), or with
+    `middle="dense"` the JAX package's dense BEV tower. After a forward,
+    `num_voxels` holds the voxels per sample and (sparse middle)
     `backbone.site_counts` the active sites per stage."""
 
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
         m = cfg.model
-        if m.compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={m.compute_dtype!r}: the port runs fp32 only "
-                "(bf16 towers are queued in ROADMAP.md)")
-        if m.middle != "sparse":
-            raise NotImplementedError(
-                f"middle={m.middle!r}: the dense BEV fallback tower "
-                "(_dense_path) is not ported yet (ROADMAP.md, queue 1: "
-                "VoxelNet dense middle forms)")
-        if m.middle_dense_from_stage is not None:
-            raise NotImplementedError(
-                "middle_dense_from_stage: the masked dense stages "
-                "(DenseConv3d, DenseBasicBlock) are not ported yet "
-                "(ROADMAP.md, queue 1: VoxelNet dense middle forms)")
-        if m.middle_gather_algo not in EXACT_GATHER_ALGOS \
-                or m.middle_sparse_dtype is not None:
-            raise NotImplementedError(
-                f"middle_gather_algo={m.middle_gather_algo!r}, "
-                f"middle_sparse_dtype={m.middle_sparse_dtype!r}: the bf16 "
-                "sparse path is not ported yet (ROADMAP.md, queue 1: "
-                "compute_dtype bfloat16 and the lossy knobs)")
+        if m.middle not in ("sparse", "dense"):
+            raise ValueError(f"middle={m.middle!r}: 'sparse' or 'dense'")
+        if m.middle_gather_algo not in GATHER_ALGOS:
+            raise ValueError(f"middle_gather_algo={m.middle_gather_algo!r}:"
+                             f" one of {GATHER_ALGOS}")
+        if m.middle_sparse_dtype not in SPARSE_DTYPES:
+            raise ValueError(f"middle_sparse_dtype="
+                             f"{m.middle_sparse_dtype!r}: one of "
+                             f"{SPARSE_DTYPES}")
         self.cfg = cfg
         gx, gy, gz = cfg.voxel.grid_size
+        r = m.rpn
+        rpn = dict(layer_nums=r.layer_nums, ds_strides=r.ds_strides,
+                   ds_filters=r.ds_filters, us_strides=r.us_strides,
+                   us_filters=r.us_filters)
+        self.num_voxels: List[int] = []
+        if m.middle == "dense":
+            # futuredet_tpu/models/detector.py:229-280: no compute_dtype
+            self.voxel_embed = nn.Linear(m.num_input_features, DENSE_EMBED)
+            # 256 -> 128 3x3 at Y/4: split, as the RPN stem, so that cuDNN
+            # takes no FFT algorithm (layers.py::SplitInputConv2d)
+            self.mid_conv0 = ConvBNReLU(DENSE_ZGROUPS * DENSE_EMBED, 128, 3,
+                                        1, bias=False, conv=SplitInputConv2d)
+            self.mid_conv1 = ConvBNReLU(128, 256, 3, 2, bias=False)
+            self.neck = RPN(256, **rpn)
+            self.bbox_head = CenterHead(m.head)
+            return
+        cd = torch_dtype(m.compute_dtype)
         self.backbone = SparseMiddleEncoder(
             num_input_features=m.num_input_features,
-            channels=m.middle_channels, grid_zyx=(gz + 1, gy, gx))
+            channels=m.middle_channels, grid_zyx=(gz + 1, gy, gx),
+            gather_algo=m.middle_gather_algo,
+            xpack_max_cin=m.middle_xpack_max_cin,
+            sparse_dtype=(torch_dtype(m.middle_sparse_dtype)
+                          if m.middle_sparse_dtype != "bf16_packed"
+                          else None),
+            packed_pairs=m.middle_sparse_dtype == "bf16_packed",
+            dense_from_stage=m.middle_dense_from_stage,
+            dense_dtype=torch_dtype(m.middle_dense_dtype))
         dims = self.backbone.grid_zyx
         for s in range(1, 4):
             dims = out_dims_of(dims, stage_pads(s, dims))
         self.z_crush = ConvBNReLU(dims[0] * m.middle_channels[-1],
-                                  m.rpn.in_channels, 1, 1, bias=False)
-        r = m.rpn
-        self.neck = RPN(r.in_channels, layer_nums=r.layer_nums,
-                        ds_strides=r.ds_strides, ds_filters=r.ds_filters,
-                        us_strides=r.us_strides, us_filters=r.us_filters)
-        self.bbox_head = CenterHead(m.head)
-        self.num_voxels: List[int] = []
+                                  m.rpn.in_channels, 1, 1, bias=False,
+                                  compute_dtype=cd)
+        self.neck = RPN(r.in_channels, **rpn, compute_dtype=cd)
+        self.bbox_head = CenterHead(m.head, compute_dtype=cd)
 
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
                 bev_map: Optional[torch.Tensor] = None,
@@ -140,10 +181,16 @@ class VoxelNetDetector(nn.Module):
         """points (B, P, F) f32, points_valid (B, P) bool, and the (B, H, W,
         1) ego map of a bev_map config -> per task a dict of NHWC head
         maps; with `return_bev`, (those, the (B, H, W, C) neck output)."""
+        if self.training:
+            refuse_bf16_training(self.cfg)
         feats, vm = self.voxelize(points, points_valid)
-        bev, zmask = self.backbone(feats, vm.coords, vm.batch,
-                                   points.shape[0])
-        x = self.neck(self.crush(bev, zmask))
+        if self.cfg.model.middle == "dense":
+            x = self.dense_bev(feats, vm, points.shape[0])
+        else:
+            bev, zmask = self.backbone(feats, vm.coords, vm.batch,
+                                       points.shape[0])
+            x = self.crush(bev, zmask)
+        x = self.neck(x)
         return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
 
     def voxelize(self, points: torch.Tensor, points_valid: torch.Tensor
@@ -159,12 +206,35 @@ class VoxelNetDetector(nn.Module):
         self.num_voxels = vm.num_voxels.tolist()
         return run_means(vm), vm
 
+    def dense_bev(self, feats: torch.Tensor, vm: PointVoxelMap,
+                  batch_size: int) -> torch.Tensor:
+        """`middle="dense"` (futuredet_tpu/models/detector.py:246-273):
+        voxel means (N, F) -> `voxel_embed` -> summed into 8 z-groups of a
+        canvas at 1/4 of the grid's xy, channel z-group * 32 + c ->
+        mid_conv0, mid_conv1 (stride 2) -> (B, 256, Y/8, X/8)."""
+        gx, gy, gz = self.cfg.voxel.grid_size
+        G, C = DENSE_ZGROUPS, DENSE_EMBED
+        H4, W4 = gy // 4, gx // 4
+        z, y, x = vm.coords.to(torch.int64).unbind(-1)
+        zg = torch.clamp(torch.div(z * G, gz, rounding_mode="floor"), 0,
+                         G - 1)
+        idx = ((vm.batch * G + zg) * H4 + torch.div(
+            y, 4, rounding_mode="floor")) * W4 + torch.div(
+                x, 4, rounding_mode="floor")
+        emb = self.voxel_embed(feats)
+        canvas = emb.new_zeros(batch_size * G * H4 * W4, C).index_add_(
+            0, idx, emb)
+        x = canvas.view(batch_size, G, H4, W4, C).permute(
+            0, 1, 4, 2, 3).reshape(batch_size, G * C, H4, W4)
+        return self.mid_conv1(self.mid_conv0(x))
+
     def crush(self, bev: torch.Tensor, zmask: torch.Tensor) -> torch.Tensor:
         """(B, Y, X, Z*C) middle output -> (B, rpn.in_channels, Y, X)."""
         x = self.z_crush(bev.permute(0, 3, 1, 2))
         # re-mask with the ref extra_conv's active sites: spconv .dense()
         # leaves them 0, the BN + ReLU above does not. Channel j carries
-        # z-slice d = j % Dz in the reference's C-major layout
+        # z-slice d = j % Dz in the reference's C-major layout; the mask
+        # multiplies in the activation's dtype (bf16 under compute_dtype)
         Dz = zmask.shape[-1]
         zm = zmask.permute(0, 3, 1, 2).to(x.dtype)             # (B, Dz, Y, X)
         if x.shape[1] % Dz == 0:

@@ -5,11 +5,20 @@ reference's `build_norm_layer(dict(type="BN", eps=1e-3, momentum=0.01))`,
 with flax's running variance in training (`BatchNorm2d`).
 The blocks are flat `nn.Sequential`s so that their `state_dict` keys are the
 reference det3d keys (`.0` conv, `.1` BN, `.2` ReLU).
+
+`compute_dtype` is the flax `dtype` of the JAX package's layers (the
+config's `compute_dtype="bfloat16"`, its serving mode,
+`futuredet_tpu/models/layers.py:26-61`): parameters stay fp32; a conv
+casts its input, weight and bias to bf16 and returns bf16; a BatchNorm
+computes its statistics and normalises in fp32 and returns bf16, as
+`flax.linen.BatchNorm(dtype=bf16)` does. Without it, an input of another
+float type is promoted to the parameters' type, as jnp promotes bf16 with
+fp32.
 """
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +28,51 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; flax momentum 0.99
 
 
-class SplitInputConv2d(nn.Conv2d):
+def torch_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A config's dtype name ("bfloat16" or None) -> torch dtype or None
+    (fp32)."""
+    if name is None:
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"dtype {name!r}: the port takes 'bfloat16' or None")
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (same parameters and keys) in `compute_dtype`."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def cast(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return None if t is None else t.to(self.compute_dtype
+                                           or self.weight.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(self.cast(x), self.cast(self.weight),
+                                  self.cast(self.bias))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (same parameters and keys) in `compute_dtype`;
+    no output_size argument."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        return F.conv_transpose2d(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class SplitInputConv2d(Conv2d):
     """A Conv2d computed as the sum of convs over groups of at most
     MAX_CIN input channels (the same parameters and keys as Conv2d).
 
@@ -33,13 +86,15 @@ class SplitInputConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.in_channels <= self.MAX_CIN or self.groups != 1:
             return super().forward(x)
+        x, w = self.cast(x), self.cast(self.weight)
         out = None
         for c0 in range(0, self.in_channels, self.MAX_CIN):
             y = F.conv2d(x[:, c0:c0 + self.MAX_CIN],
-                         self.weight[:, c0:c0 + self.MAX_CIN], None,
+                         w[:, c0:c0 + self.MAX_CIN], None,
                          self.stride, self.padding, self.dilation)
             out = y if out is None else out + y
-        return out if self.bias is None else out + self.bias[:, None, None]
+        return (out if self.bias is None
+                else out + self.cast(self.bias)[:, None, None])
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -47,9 +102,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     training step updates `running_var` with the BIASED batch variance, as
     flax's BatchNorm does (`futuredet_tpu/models/layers.py:43-45`); torch's
     own update uses the unbiased one. The batch is normalised with the
-    biased variance either way."""
+    biased variance either way. In `compute_dtype` the statistics and the
+    normalisation are fp32 and the output is cast to it."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._normalize(x.to(self.weight.dtype))
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
@@ -65,29 +130,38 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  bias: bool = True, padding: int = None,
-                 conv=nn.Conv2d) -> List[nn.Module]:
+                 conv=Conv2d, compute_dtype: Optional[torch.dtype] = None
+                 ) -> List[nn.Module]:
     """[conv, BatchNorm2d, ReLU]. Padding defaults to the explicit
     symmetric (k-1)//2, which is torch's own: a stride-2 3x3 window starts
     at -1, as the JAX package forces with explicit padding."""
     p = (kernel - 1) // 2 if padding is None else padding
-    return [conv(cin, cout, kernel, stride=stride, padding=p, bias=bias),
-            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+    return [conv(cin, cout, kernel, stride=stride, padding=p, bias=bias,
+                 compute_dtype=compute_dtype),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM,
+                        compute_dtype=compute_dtype),
             nn.ReLU()]
 
 
 class ConvBNReLU(nn.Sequential):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 bias: bool = True):
-        super().__init__(*conv_bn_relu(cin, cout, kernel, stride, bias))
+                 bias: bool = True, conv=Conv2d,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(*conv_bn_relu(cin, cout, kernel, stride, bias,
+                                       conv=conv,
+                                       compute_dtype=compute_dtype))
 
 
 class DeconvBNReLU(nn.Sequential):
     """k == stride transposed conv (the RPN "deblock"), no bias."""
 
-    def __init__(self, cin: int, cout: int, stride: int):
+    def __init__(self, cin: int, cout: int, stride: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__(
-            nn.ConvTranspose2d(cin, cout, stride, stride=stride, bias=False),
-            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            ConvTranspose2d(cin, cout, stride, stride=stride, bias=False,
+                            compute_dtype=compute_dtype),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM,
+                        compute_dtype=compute_dtype),
             nn.ReLU())
 
 

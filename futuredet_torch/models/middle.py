@@ -20,23 +20,52 @@ Parameters carry the reference keys (`conv_input.{0,1}`,
 weight layout (kd, kh, kw, Cin, Cout), viewed as (27, Cin, Cout) at call
 time, so a reference backbone loads as it is.
 
-Only the all-sparse form is ported: the JAX package's masked dense tail
-(`dense_from_stage`, `DenseConv3d`, `DenseBasicBlock`) is queued in
-ROADMAP.md.
+The input form of each sparse conv follows the JAX encoder's knobs
+(`futuredet_tpu/models/middle.py:149-179,225-238`; `conv_form`):
+
+  * `sparse_dtype="bfloat16"` and `gather_algo="window_bf16"`: x and W
+    rounded to bf16, products summed in fp32 (K2's bf16 family); under
+    `window` with bf16 inputs only x is rounded (the Pallas kernel selects
+    bf16 rows and multiplies in fp32);
+  * `packed_pairs` (`middle_sparse_dtype="bf16_packed"`): at the stages
+    the JAX package packs (algo `xpack`, 128 < 3 * Cin <= 256, never in
+    training) the inputs are truncated to bf16 and K2's fp32 family runs,
+    the numbers of `conv_x3_packed` without its bit packing;
+  * `window*` at B > 1 is `loop` and `hybrid` is `stacked` (the JAX
+    detector, `futuredet_tpu/models/detector.py:146-149`); in training
+    `window*` and `hybrid` are `stacked`: exact fp32 either way.
+
+BatchNorm, the residual and the outputs stay fp32.
+
+`dense_from_stage` (`futuredet_tpu/models/middle.py:75-146,190-223,
+322-378`): stages from that one on run as masked dense 3D convs on the
+scattered canvas (cuDNN `conv3d`, as the JAX package runs them outside
+any Pallas kernel), re-masked after every conv, with the active cells of
+a strided stage from a kernel-3 stride-2 max-pool of the mask (the
+generative rule). Inactive cells hold zeros, so the sums are the sparse
+path's in another order. The dense forms use the sparse modules'
+parameters, so one state_dict runs either form. `dense_dtype` rounds the
+dense convs' operands to bf16 and sums their products in fp32
+(`preferred_element_type=float32`).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.sparse_conv import (SparseGrid, downsample_coords, make_grid,
-                               neighbor_table, out_dims_of, scatter_dense,
-                               strided_gather_table, strided_inverse_table,
-                               subm_conv_apply)
+from ..ops.sparse_conv import (SparseGrid, bf16_truncate, downsample_coords,
+                               make_grid, neighbor_table, out_dims_of,
+                               scatter_dense, strided_gather_table,
+                               strided_inverse_table, subm_conv_apply)
 from .readers import MaskedBatchNorm
+
+# K2 input forms of a sparse conv (`conv_form`): fp32 (None), x and W in
+# bf16, x rounded to bf16 with fp32 W, x truncated to bf16 with fp32 W
+BF16, ROUND_X, TRUNC_X = "bf16", "round_x", "trunc_x"
 
 
 class SparseConv(nn.Module):
@@ -61,10 +90,61 @@ class SparseConv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, table: torch.Tensor,
-                inverse_table: torch.Tensor = None) -> torch.Tensor:
-        return subm_conv_apply(x, table,
-                               self.weight.reshape(27, self.cin, self.cout),
-                               self.bias, inverse_table)
+                inverse_table: torch.Tensor = None,
+                form: Optional[str] = None) -> torch.Tensor:
+        """(N_in, Cin) fp32 -> (N_out, Cout) fp32, with the input `form`
+        of `conv_form`."""
+        w = self.weight.reshape(27, self.cin, self.cout)
+        if form == BF16:
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        elif form == ROUND_X:
+            x = x.to(torch.bfloat16).float()
+        elif form == TRUNC_X:
+            x = bf16_truncate(x)
+        return subm_conv_apply(x, table, w, self.bias, inverse_table)
+
+    def dense(self, canvas: torch.Tensor, stride: int = 1,
+              pads: Tuple[int, int, int] = (1, 1, 1),
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The same conv over a dense (B, Cin, Z, Y, X) canvas ->
+        (B, Cout, Z', Y', X') fp32 (the JAX `DenseConv3d`). With `dtype`
+        the operands are rounded to it and the products summed in fp32."""
+        w = self.weight.permute(4, 3, 0, 1, 2)        # (Cout, Cin, kd, kh, kw)
+        if dtype is not None:
+            canvas, w = canvas.to(dtype).float(), w.to(dtype).float()
+        return F.conv3d(canvas, w, self.bias, stride, pads)
+
+
+def _bn_dense(bn: MaskedBatchNorm, x: torch.Tensor, mask: torch.Tensor
+              ) -> torch.Tensor:
+    """`bn` over a (B, C, Z, Y, X) canvas whose active cells are `mask`
+    (B, Z, Y, X): in training the statistics of each sample's active
+    cells, averaged over the samples, as the sparse path takes them;
+    in eval every cell normalised with the running statistics."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    B, C = x.shape[:2]
+    rows = x.permute(0, 2, 3, 4, 1).reshape(-1, C)
+    sample = torch.arange(B, device=x.device).repeat_interleave(
+        rows.shape[0] // B)
+    y = bn(rows, mask.reshape(-1), sample, B)
+    return y.reshape(B, *x.shape[2:], C).permute(0, 4, 1, 2, 3)
+
+
+def _masked_relu(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[:, None], torch.relu(x), 0.0)
+
+
+def mask_downsample(mask: torch.Tensor, out_dims,
+                    pads: Tuple[int, int, int] = (1, 1, 1)) -> torch.Tensor:
+    """(B, Z, Y, X) active cells -> those of a kernel-3 stride-2 conv: a
+    cell is active iff any input under its window is (the generative rule
+    of `downsample_coords`; the JAX `_mask_downsample`)."""
+    out = F.max_pool3d(mask[:, None].float(), 3, 2, pads)[:, 0] > 0
+    if tuple(out.shape[1:]) != tuple(out_dims):
+        raise ValueError(f"mask {tuple(out.shape[1:])} != {out_dims}")
+    return out
 
 
 class SparseBasicBlock(nn.Module):
@@ -78,12 +158,23 @@ class SparseBasicBlock(nn.Module):
         self.bn2 = MaskedBatchNorm(features)
 
     def forward(self, x: torch.Tensor, table: torch.Tensor,
-                grid: SparseGrid, batch_size: int) -> torch.Tensor:
+                grid: SparseGrid, batch_size: int,
+                form: Optional[str] = None) -> torch.Tensor:
         identity = x
-        x = torch.relu(self.bn1(self.conv1(x, table), None, grid.batch,
-                                batch_size))
-        x = self.bn2(self.conv2(x, table), None, grid.batch, batch_size)
+        x = torch.relu(self.bn1(self.conv1(x, table, form=form), None,
+                                grid.batch, batch_size))
+        x = self.bn2(self.conv2(x, table, form=form), None, grid.batch,
+                     batch_size)
         return torch.relu(x + identity)
+
+    def dense(self, canvas: torch.Tensor, mask: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The JAX `DenseBasicBlock`: the same block on a (B, C, Z, Y, X)
+        canvas, re-masked after each conv."""
+        x = _masked_relu(_bn_dense(self.bn1, self.conv1.dense(
+            canvas, dtype=dtype), mask), mask)
+        x = _bn_dense(self.bn2, self.conv2.dense(x, dtype=dtype), mask)
+        return _masked_relu(x + canvas, mask)
 
 
 def stage_pads(s: int, dims) -> Tuple[int, int, int]:
@@ -98,13 +189,29 @@ def stage_pads(s: int, dims) -> Tuple[int, int, int]:
 
 class SparseMiddleEncoder(nn.Module):
     """`site_counts` holds the active sites of stages 0..3 of the last
-    forward (over the whole batch)."""
+    forward (over the whole batch; the active cells of a dense stage).
+    The knobs are the JAX encoder's (module docstring): `gather_algo`,
+    `xpack_max_cin`, `sparse_dtype` and `packed_pairs` set each sparse
+    conv's input form, `dense_from_stage` and `dense_dtype` the dense
+    tail."""
 
     def __init__(self, num_input_features: int = 5,
                  channels: Tuple[int, ...] = (16, 32, 64, 128),
-                 grid_zyx: Tuple[int, int, int] = (41, 1440, 1440)):
+                 grid_zyx: Tuple[int, int, int] = (41, 1440, 1440),
+                 gather_algo: str = "xpack", xpack_max_cin: int = 64,
+                 sparse_dtype: Optional[torch.dtype] = None,
+                 packed_pairs: bool = False,
+                 dense_from_stage: Optional[int] = None,
+                 dense_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.grid_zyx = tuple(grid_zyx)
+        self.channels = tuple(channels)
+        self.gather_algo = gather_algo
+        self.xpack_max_cin = xpack_max_cin
+        self.sparse_dtype = sparse_dtype
+        self.packed_pairs = packed_pairs
+        self.dense_from_stage = dense_from_stage
+        self.dense_dtype = dense_dtype
         c = channels
         self.conv_input = nn.ModuleList([
             SparseConv(num_input_features, c[0], bias=False),
@@ -116,6 +223,37 @@ class SparseMiddleEncoder(nn.Module):
                 nn.ReLU(), SparseBasicBlock(c[s]), SparseBasicBlock(c[s])]))
         self.site_counts: List[int] = []
 
+    def conv_algo(self, batch_size: int) -> str:
+        """The gather algo the JAX package runs at this batch size and
+        mode: `window*` -> `loop` and `hybrid` -> `stacked` at B > 1
+        (the detector, detector.py:146-149), both -> `stacked` in training
+        (the encoder, middle.py:230-233)."""
+        algo = self.gather_algo
+        if algo.startswith("window") or algo == "hybrid":
+            if self.training:
+                return "stacked"
+            if batch_size > 1:
+                return "loop" if algo.startswith("window") else "stacked"
+        return algo
+
+    def conv_form(self, algo: str, s: int, cin: int,
+                  packable: bool = True) -> Optional[str]:
+        """K2's input form for a conv of `cin` inputs whose gather algo is
+        stage `s`'s (`xpack` beyond `xpack_max_cin` channels runs
+        `stacked`): TRUNC_X where the JAX package packs bf16 pairs
+        (middle.py:235-238), BF16 under `window_bf16` or bf16 inputs,
+        ROUND_X for bf16 inputs under the fp32 `window`, else None."""
+        if algo == "xpack" and self.channels[s] > self.xpack_max_cin:
+            algo = "stacked"
+        if (packable and self.packed_pairs and not self.training
+                and algo == "xpack" and 128 < 3 * cin <= 256):
+            return TRUNC_X
+        if algo == "window_bf16":
+            return BF16
+        if self.sparse_dtype is not None:
+            return ROUND_X if algo == "window" else BF16
+        return None
+
     def forward(self, voxel_feats: torch.Tensor, coords: torch.Tensor,
                 batch: torch.Tensor = None, batch_size: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -123,39 +261,66 @@ class SparseMiddleEncoder(nn.Module):
         (N,) sample index (default 0) -> (dense BEV (B, Y, X, Z*C) with
         channel z*C + c, active z-mask of the reference extra_conv
         (B, Y, X, Dz))."""
+        B = batch_size
         dims = self.grid_zyx
+        dense_start = (4 if self.dense_from_stage is None
+                       else self.dense_from_stage)
+        algo = self.conv_algo(B)
         grid, order = make_grid(coords, dims, batch)
         x = voxel_feats[order]
-        table = neighbor_table(grid, dims)
+        canvas = mask = None          # the dense tail's, once it starts
         conv, bn = self.conv_input
-        x = torch.relu(bn(conv(x, table), None, grid.batch, batch_size))
-        for block in self.conv1:
-            x = block(x, table, grid, batch_size)
-        counts = [len(grid.ids)]
+        if dense_start <= 0:
+            canvas, mask = _to_dense(x, grid, dims, B)
+            canvas = _masked_relu(_bn_dense(bn, conv.dense(
+                canvas, dtype=self.dense_dtype), mask), mask)
+            for block in self.conv1:
+                canvas = block.dense(canvas, mask, self.dense_dtype)
+            counts = [int(mask.sum())]
+        else:
+            table = neighbor_table(grid, dims)
+            x = torch.relu(bn(conv(x, table, form=self.conv_form(
+                algo, 0, conv.cin, packable=False)), None, grid.batch, B))
+            for block in self.conv1:
+                x = block(x, table, grid, B,
+                          self.conv_form(algo, 0, self.channels[0]))
+            counts = [len(grid.ids)]
         for s in range(1, 4):
             down, bn, _relu, *blocks = getattr(self, f"conv{s + 1}")
             pads = stage_pads(s, dims)
             out_dims = out_dims_of(dims, pads)
+            if s >= dense_start:
+                if canvas is None:            # the sparse -> dense turn
+                    canvas, mask = _to_dense(x, grid, dims, B)
+                canvas = down.dense(canvas, 2, pads, self.dense_dtype)
+                mask = mask_downsample(mask, out_dims, pads)
+                canvas = _masked_relu(_bn_dense(bn, canvas, mask), mask)
+                dims = out_dims
+                for block in blocks:
+                    canvas = block.dense(canvas, mask, self.dense_dtype)
+                counts.append(int(mask.sum()))
+                continue
             ngrid = downsample_coords(grid, out_dims, pads)
             # the strided conv reads the previous stage's sites
             dtable = strided_gather_table(grid, ngrid, dims, pads=pads)
             inv = (strided_inverse_table(grid, ngrid, out_dims, pads=pads)
                    if torch.is_grad_enabled() else None)
-            x = torch.relu(bn(down(x, dtable, inv), None, ngrid.batch,
-                              batch_size))
+            form = self.conv_form(algo, s - 1, self.channels[s - 1])
+            x = torch.relu(bn(down(x, dtable, inv, form), None, ngrid.batch,
+                              B))
             grid, dims = ngrid, out_dims
             table = neighbor_table(grid, dims)
             for block in blocks:
-                x = block(x, table, grid, batch_size)
+                x = block(x, table, grid, B,
+                          self.conv_form(algo, s, self.channels[s]))
             counts.append(len(grid.ids))
         self.site_counts = counts
 
         # z-crush input (ref extra_conv :140-146 and .dense() :165-168):
         # the last stage on a dense canvas, z folded into channels
-        canvas = scatter_dense(x, grid, dims, batch_size)      # (B,Z,Y,X,C)
-        mask = scatter_dense(torch.ones_like(x[:, :1]), grid, dims,
-                             batch_size)[..., 0] > 0         # (B, Z, Y, X)
-        B, Z, Y, X, C = canvas.shape
+        if canvas is None:
+            canvas, mask = _to_dense(x, grid, dims, B)
+        _, C, Z, Y, X = canvas.shape
         # active sites of the ref extra_conv output ((3,1,1) kernel, stride
         # (2,1,1), no z padding): the detector re-masks z_crush with it
         if Z >= 3:
@@ -163,4 +328,16 @@ class SparseMiddleEncoder(nn.Module):
                                  for d in range((Z - 3) // 2 + 1)], -1)
         else:
             zmask = mask.any(1)[..., None]
-        return canvas.permute(0, 2, 3, 1, 4).reshape(B, Y, X, Z * C), zmask
+        return canvas.permute(0, 3, 4, 2, 1).reshape(B, Y, X, Z * C), zmask
+
+
+def _to_dense(x: torch.Tensor, grid: SparseGrid, dims, batch_size: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Site features (N, C) -> the (B, C, Z, Y, X) canvas, zero where
+    empty, and its (B, Z, Y, X) active cells."""
+    canvas = scatter_dense(x, grid, dims, batch_size)
+    mask = torch.zeros(batch_size * math.prod(dims), dtype=torch.bool,
+                       device=x.device)
+    mask[grid.ids] = True
+    return (canvas.permute(0, 4, 1, 2, 3).contiguous(),
+            mask.reshape(batch_size, *dims))

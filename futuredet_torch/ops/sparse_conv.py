@@ -11,7 +11,7 @@ middle encoder (`det3d/models/backbones/scn.py:2-3`):
     (27, N) int32 tables whose absent entries hold N (the conv reads a zero
     row there), the JAX package's tables on the same sites;
   * conv: `out[n] = sum_k x[table[k, n]] @ W[k]`, kernel K2
-    (`ops/pallas_gather.py::gather_conv`);
+    (`ops/pallas_gather.py::gather_conv`), on fp32 or bf16 x and W;
   * strided conv: spconv's generative rule, every output site that
     receives an active input under the kernel-3 stride-2 footprint;
   * gradients (`SparseConvFunction`, the port of the custom VJPs
@@ -170,6 +170,14 @@ def strided_inverse_table(in_grid: SparseGrid, out_grid: SparseGrid,
     oc = torch.where(even, torch.div(num, 2, rounding_mode="floor"), -1)
     return _lookup(out_grid, in_grid.batch[None].expand(len(offs), -1), oc,
                    out_dims)
+
+
+def bf16_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded toward zero to bf16, as fp32: the numbers of the JAX
+    package's bf16-pair packing (`pack_bf16_pairs` then
+    `unpack_pairs_fp32`, `futuredet_tpu/ops/sparse_conv.py:477-497`),
+    which `conv_x3_packed` feeds to an fp32 product."""
+    return (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

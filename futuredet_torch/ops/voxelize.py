@@ -1,8 +1,8 @@
 """Hard voxelization with per-voxel mean features, on the device.
 
 Port of `futuredet_tpu/ops/voxelize.py` (`point_voxel_map`,
-`voxelize_mean`, `points_to_voxel_np`; reference numba kernel
-`det3d/ops/point_cloud/point_cloud_ops.py:8-62`):
+`voxelize_mean`, the FCFS `voxelize`, `points_to_voxel_np`; reference
+numba kernel `det3d/ops/point_cloud/point_cloud_ops.py:8-62`):
 
   point -> voxel id (floor division)  ->  stable sort by id
   -> run boundaries  ->  per-voxel sums of the first max_points points
@@ -32,6 +32,14 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+
+class VoxelData(NamedTuple):
+    """The hard voxelizer's padded buffers (`voxelize`)."""
+    voxels: torch.Tensor      # (max_voxels, max_points, F), zero padded
+    coords: torch.Tensor      # (max_voxels, 3) int32 zyx, -1 padded
+    num_points: torch.Tensor  # (max_voxels,) int32
+    num_voxels: torch.Tensor  # () int64
 
 
 class PointVoxelMap(NamedTuple):
@@ -124,6 +132,33 @@ def voxelize_mean(points: torch.Tensor, point_valid: torch.Tensor,
     num = torch.zeros(max_voxels, dtype=torch.int32, device=points.device)
     num[:n] = m.num_points
     return feats, coords, num, m.num_voxels[0]
+
+
+def voxelize(points: torch.Tensor, point_valid: torch.Tensor, pc_range,
+             voxel_size, *, grid_size: Tuple[int, int, int],
+             max_voxels: int, max_points: int) -> VoxelData:
+    """One sample, the reference hard voxelizer's (V, K, F) buffers
+    (`futuredet_tpu/ops/voxelize.py:144-161`): points (P, F), valid (P,)
+    -> each kept voxel's first `max_points` points in input order, in
+    ascending z-major id order, zero padded to `max_voxels` x
+    `max_points`. `utils/native.py::voxelize_native` gives the same voxels
+    in order of their first point, on the host."""
+    m = point_voxel_map(points[None], point_valid[None], pc_range,
+                        voxel_size, grid_size=grid_size,
+                        max_voxels=max_voxels, max_points=max_points)
+    n, F = len(m.first), points.shape[1]
+    rank = torch.arange(max_points, device=points.device)
+    kept = rank[None] < m.num_points[:, None].to(torch.int64)   # (n, K)
+    rows = torch.clamp_max(m.first[:, None] + rank[None],
+                           max(m.points.shape[0] - 1, 0))
+    voxels = points.new_zeros((max_voxels, max_points, F))
+    voxels[:n] = torch.where(kept[..., None], m.points[rows], 0.0)
+    coords = torch.full((max_voxels, 3), -1, dtype=torch.int32,
+                        device=points.device)
+    coords[:n] = m.coords
+    num = torch.zeros(max_voxels, dtype=torch.int32, device=points.device)
+    num[:n] = m.num_points
+    return VoxelData(voxels, coords, num, m.num_voxels[0])
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,12 @@ backward still runs, the `grad_norm` metric is over every gradient
 (`optax.global_norm(grads)`), and frozen BatchNorms update their running
 statistics, the model being in train mode as a whole.
 
+Under a bf16 knob (`compute_dtype`, `middle_sparse_dtype="bfloat16"`,
+`middle_dense_dtype`) the detector's train-mode forward raises, naming
+ROADMAP.md's "bf16 training" (`models/detector.py::refuse_bf16_training`);
+the knobs the JAX package makes exact in training (`window*`, `hybrid`,
+`bf16_packed`) train as fp32, the dense middle forms through autograd.
+
 A first AdamW step moves every parameter by about lr * sign(g), so two
 runs whose gradients differ by rounding can move a parameter with a
 near-zero gradient 2 * lr apart: compare gradients, or the updates of the

@@ -10,7 +10,9 @@ the port's `z_crush.*` (`_compose_extra_conv`).
 `_key_map` is the port's own copy of
 `futuredet_tpu/utils/convert_checkpoint.py::_key_map` for the ported
 modules (pillar reader, sparse middle encoder, neck, head with its
-`bev_conv`), plus the port-only `z_crush.{0,1}` keys of VoxelNet's z_crush
+`bev_conv`), plus the `middle="dense"` detector's `voxel_embed` and
+`mid_conv{0,1}.{0,1}` (the JAX `_dense_path`'s modules, which the JAX
+converter does not map), plus the port-only `z_crush.{0,1}` keys of VoxelNet's z_crush
 ConvBNReLU and the DCN head's keys (the reference DCNSepHead's:
 `feature_adapt_{cls,reg}.{conv_offset,conv_adaption}`, `cls_head.{0,1,3}`,
 `task_head.<branch>`), which the JAX converter does not map, and the
@@ -86,8 +88,6 @@ def _key_map(cfg: ExperimentConfig):
     """(param_entries, stat_entries) of the pillar or sparse VoxelNet
     detector."""
     m = cfg.model
-    if m.detector == "voxelnet" and m.middle != "sparse":
-        raise NotImplementedError("only the sparse VoxelNet middle is ported")
     params: List = []
     stats: List = []
 
@@ -103,8 +103,16 @@ def _key_map(cfg: ExperimentConfig):
             add(*_bn(("reader", f"MaskedBatchNorm_{i}"),
                      f"reader.pfn_layers.{i}.norm"))
 
-    if m.detector == "voxelnet":
-        # ref SpMiddleResNetFHD (scn.py:98-146)
+    if m.detector == "voxelnet" and m.middle == "dense":
+        # the JAX _dense_path's own modules (detector.py:260-272)
+        params += [(("voxel_embed", "kernel"), "voxel_embed.weight", "linear"),
+                   (("voxel_embed", "bias"), "voxel_embed.bias", "copy")]
+        for i in range(2):
+            add(*_conv_bn_relu((f"mid_conv{i}",), f"mid_conv{i}.0",
+                               f"mid_conv{i}.1", bias=False))
+    elif m.detector == "voxelnet":
+        # ref SpMiddleResNetFHD (scn.py:98-146); a dense stage
+        # (middle_dense_from_stage) keeps its sparse parameters and names
         params.append((("middle", "conv_input", "kernel"),
                        "backbone.conv_input.0.weight", "subm"))
         add(*_bn(("middle", "bn_input"), "backbone.conv_input.1"))
@@ -245,8 +253,8 @@ def flax_to_state_dict(variables, cfg: ExperimentConfig
     """{'params': ..., 'batch_stats': ...} numpy trees of the JAX
     PointPillarsDetector, VoxelNetDetector or TwoStageDetector -> a state
     dict that the port's detector takes with `load_state_dict(strict=True)`.
-    Top-level modules (`reader`, `middle`, `z_crush`, `neck`, `head`;
-    `first_stage`, `roi_head`) absent from the trees are left out, so the
+    Top-level modules (`reader`, `middle`, `z_crush`, `voxel_embed`,
+    `mid_conv0/1`, `neck`, `head`; `first_stage`, `roi_head`) absent from the trees are left out, so the
     trees of one module alone, e.g. {'params': {'neck': ...}, ...}, give
     that module's keys. A params-only tree {'params': ...} maps to the
     parameter keys alone: gradients have the params' structure, and every

@@ -3,9 +3,12 @@
 
     python3 scripts/torch_profile.py [--model pp_forecast_n3dtf|forecast_n3dtf]
                                      [--scene uniform|clustered] [--iters 5]
+                                     [--knob KEY=VALUE ...]
                                      [--decode-ops] [--train]
                                      [--trace PATH]
     python3 scripts/torch_profile.py --train --model forecast_n3dtfm
+    python3 scripts/torch_profile.py --model forecast_n3dtf \
+        --knob compute_dtype=bfloat16 --knob middle_sparse_dtype=bfloat16
 
 Builds the full-width model with seeded random weights and the scenes of
 chip_smoke.py, runs a scene through the model's stages (pillars: reader ->
@@ -17,7 +20,10 @@ Prints JSON lines: the device time of each stage, the wall time (median of
 the 15 kernels with the most device time, every kernel of the port's own
 (PORT_KERNELS: K1's nms_* passes, K2's narrow_kernel and wide_kernel),
 the dense conv FLOPs of one run and the
-device's busy share of the traced wall time. `--decode-ops` then traces
+device's busy share of the traced wall time. `--knob` sets a field of the
+model config (a JSON value or a string: compute_dtype=bfloat16,
+middle_dense_from_stage=2, middle=dense; under middle=dense the "middle"
+stage is the dense BEV tower and there is no z_crush). `--decode-ops` then traces
 decode_and_nms alone on one run's head outputs: decode_single,
 rotate_nms, top_k_stable (the stable sort), rotate_nms_alive (K1) and
 _compact (the survivor compaction) each run under a record_function range
@@ -52,7 +58,7 @@ from chip_smoke import (MAX_POINTS, NAME, VOX_NAME,  # noqa: E402
                         scene_uniform)
 
 # the names of the port's own kernels (csrc/*.cu)
-PORT_KERNELS = r"nms_|narrow_kernel|wide_kernel"
+PORT_KERNELS = r"nms_|narrow_kernel|wide_kernel|bf16_kernel"
 STAGES = {NAME: ("reader", "neck", "head", "decode_and_nms"),
           VOX_NAME: ("voxelize", "middle", "z_crush", "neck", "head",
                      "decode_and_nms")}
@@ -236,6 +242,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="profile the model's train steps instead")
     ap.add_argument("--trace", help="write the Chrome trace to this path")
+    ap.add_argument("--knob", action="append", default=[],
+                    help="KEY=VALUE, a model config field")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: needs an NVIDIA GPU", file=sys.stderr)
@@ -263,6 +271,15 @@ def main() -> int:
                  f"{sorted(STAGES)} only")
     stages = STAGES[args.model]
     cfg = get_config(args.model)
+    knobs = {}
+    for kv in args.knob:
+        k, v = kv.split("=", 1)
+        try:
+            knobs[k] = json.loads(v)
+        except json.JSONDecodeError:
+            knobs[k] = v
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **knobs))
+    dense = cfg.model.middle == "dense"
     seed = 0 if args.scene == "uniform" else 1
     if args.model == NAME:
         cfg = cfg.replace(voxel=dataclasses.replace(
@@ -295,9 +312,12 @@ def main() -> int:
                 x = x.permute(0, 3, 1, 2)
             else:
                 feats, vm = stage("voxelize", model.voxelize, pts, valid)
-                bev, zmask = stage("middle", model.backbone, feats,
-                                   vm.coords, vm.batch, 1)
-                x = stage("z_crush", model.crush, bev, zmask)
+                if dense:
+                    x = stage("middle", model.dense_bev, feats, vm, 1)
+                else:
+                    bev, zmask = stage("middle", model.backbone, feats,
+                                       vm.coords, vm.batch, 1)
+                    x = stage("z_crush", model.crush, bev, zmask)
             x = stage("neck", model.neck, x)
             preds = stage("head", model.bbox_head, x)
             return stage("decode_and_nms", decode_and_nms, cfg, preds)
@@ -330,7 +350,7 @@ def main() -> int:
                      key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     print(json.dumps({"card": card, "model": args.model,
-                      "scene": args.scene,
+                      "knobs": knobs, "scene": args.scene,
                       "iters": args.iters, "wall_ms_per_run":
                       wall_ms / args.iters,
                       "device_busy_ms_per_run": busy_ms / args.iters,

@@ -125,22 +125,32 @@ def test_more_than_two_let_offs_a_scene_fail(moved, fails):
 
 
 @pytest.mark.parametrize("cin,cout,route", [(5, 16, "narrow"),
-                                            (128, 128, "wide")])
+                                            (128, 128, "wide"),
+                                            (128, 128, "bf16")])
 def test_k2_bounds(cin, cout, route):
-    """bytes once at 3.35 TB/s; 2 * present pairs * Cin * Cout at 67
-    TFLOP/s (bound_ms) and, for the wide family, at 495 / 3 TFLOP/s."""
+    """bytes once at 3.35 TB/s (x and W in 2 bytes for the bf16 family);
+    2 * present pairs * Cin * Cout at 67 TFLOP/s (bound_ms; 989 for the
+    bf16 family) and, for the wide family, at 495 / 3 TFLOP/s."""
     V, N = 40, 30
+    dtype = torch.bfloat16 if route == "bf16" else torch.float32
     table = torch.full((27, N), V, dtype=torch.int32)
     table[0] = torch.arange(N)
     table[26, :7] = 3
-    got = cs.k2_bound(torch.zeros(V, cin), table, torch.zeros(27, cin, cout),
+    got = cs.k2_bound(torch.zeros(V, cin, dtype=dtype), table,
+                      torch.zeros(27, cin, cout, dtype=dtype),
                       torch.zeros(cout))
     present = N + 7
-    nbytes = 4 * (V * cin + 27 * N + 27 * cin * cout + cout + N * cout)
+    elt = 2 if route == "bf16" else 4
+    nbytes = elt * (V * cin + 27 * cin * cout) + 4 * (27 * N + cout
+                                                      + N * cout)
     ops = 2 * present * cin * cout
+    peak = 989e12 if route == "bf16" else 67e12
     assert got["route"] == route and got["present_pairs"] == present
+    assert got["bytes"] == nbytes
+    assert got["bytes_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert got["ops_ms"] == pytest.approx(ops / peak * 1e3)
     assert got["bound_ms"] == pytest.approx(
-        max(nbytes / 3.35e12, ops / 67e12) * 1e3)
+        max(nbytes / 3.35e12, ops / peak) * 1e3)
     if route == "wide":
         assert got["tc_bound_ms"] == pytest.approx(
             max(nbytes / 3.35e12, ops / (495e12 / 3)) * 1e3)
@@ -524,3 +534,74 @@ def test_two_stage_phases_rehearse_on_the_cpu(two_stage_phases_on_the_cpu,
         cs.TWO_STAGE_CLI_EPOCHS
     assert ln["tta_exit"] != "0"
     assert os.path.exists(os.path.join(cs.ROOT, ln["metrics"]))
+
+
+@pytest.fixture
+def serving_phases_on_the_cpu(eval_phases_on_the_cpu, monkeypatch):
+    """chip_smoke's serving and dense-middle phases (29-32) on the CPU, on
+    top of the evaluation rehearsal: the small VoxelNet of
+    tests/test_torch_bf16.py (middle channels 8/16/64/64, so that the
+    bf16-pair stages exist) and tiny_variant(pp_forecast_n3dtf), K2 as a
+    plain version counted by route, the stacked yardstick in fp32."""
+    from futuredet_torch import config
+    from futuredet_torch.ops import pallas_gather, sparse_conv
+    from tests.test_torch_bf16 import serving_config
+    unpatched = types.SimpleNamespace(get_config=get_config,
+                                      tiny_variant=config.tiny_variant)
+    small = {cs.NAME: config.tiny_variant(get_config(cs.NAME)),
+             cs.VOX_NAME: serving_config(unpatched)}
+    monkeypatch.setattr(config, "get_config", lambda name: small[name])
+
+    def counting_k2(f, t, w, b=None):
+        counting_k2.launches += 1
+        counting_k2.launches_by_route[pallas_gather.k2_route(
+            f.shape[1], w.shape[2], f.dtype)] += 1
+        return pallas_gather.gather_conv_plain(f, t, w, b)
+    monkeypatch.setattr(pallas_gather, "gather_conv", counting_k2)
+    monkeypatch.setattr(sparse_conv, "gather_conv", counting_k2)
+    pallas_gather.reset_launches()
+
+    def library(f, t, w, b):
+        return lambda: pallas_gather.gather_conv_plain(f, t, w, b)
+    monkeypatch.setattr(cs, "k2_library_call", library)
+    monkeypatch.setattr(cs, "TRAIN_CLUTTER", 1500)
+    return eval_phases_on_the_cpu
+
+
+def test_serving_phases_rehearse_on_the_cpu(serving_phases_on_the_cpu):
+    lines = serving_phases_on_the_cpu
+    dev = torch.device("cpu")
+    out = cs.serving_path(dev, "cpu")
+    vox, pp = cs.VOX_NAME, cs.NAME
+    assert out["paths"] == {
+        f"{vox}+a_bf16": {"k1": 1, "k2": 20, "k2_bf16": 20},
+        f"{vox}+b_window_bf16": {"k1": 1, "k2": 20, "k2_bf16": 20},
+        f"{vox}+c_bf16_packed": {"k1": 1, "k2": 20, "k2_bf16": 0},
+        f"{pp}+pillars_bf16": {"k1": 1, "k2": 0, "k2_bf16": 0}}
+    assert [ln["phase"] for ln in lines] == ["serving"] * 4 + [
+        "k2_bf16_vs_plain"]
+    for ln in lines[:4]:
+        assert 0 <= ln["head_maps_rel_err_vs_fp32"] <= cs.SERVING_RTOL
+        assert len(ln["ms_per_scene_turns"]) == 2
+    # bf16 towers move the maps, bf16_packed's truncation a little
+    assert lines[0]["head_maps_rel_err_vs_fp32"] > 1e-4
+    assert 0 < lines[2]["head_maps_rel_err_vs_fp32"] < 1e-2
+    convs = lines[-1]["convs"]
+    assert len(convs) == 20 and all(c["route"] == "bf16" for c in convs)
+    assert all(c["max_abs_err"] == 0.0 and c["bit_identical"]
+               for c in convs)
+    assert convs[0]["cin"] == 5 and convs[-1]["cin"] == 64
+    assert out["k2_bf16"]["bound_ms"] > 0
+
+    del lines[:]
+    dense = cs.dense_middle_path(dev, "cpu")
+    assert dense == {f"{vox}+d_dense_from2": {"k1": 1, "k2": 10},
+                     f"{vox}+d_dense_from2_bf16": {"k1": 1, "k2": 10},
+                     f"{vox}+e_dense": {"k1": 1, "k2": 0}}
+    assert [ln["phase"] for ln in lines] == ["dense_canvas"] + [
+        "dense_middle"] * 4
+    assert set(lines[0]["bytes"]) == {"canvas_in", "stage2_out",
+                                      "stage3_out"}
+    assert lines[1]["middle_max_abs_err"] <= lines[1]["middle_tol"]
+    assert lines[2]["middle_max_abs_err"] > 0
+    assert np.isfinite(lines[3]["train_loss"]) and lines[3]["train_k2"] == 0

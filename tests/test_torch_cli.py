@@ -216,6 +216,26 @@ def test_the_cli_runs_on_the_card_by_default(tmp_path):
                          str(tmp_path / "x")])
 
 
+@pytest.mark.parametrize("cli", ["train", "evaluate"])
+def test_defaults_are_the_jax_clis(cli):
+    """parse_args([]) of both packages: the same flags with the same
+    defaults (--model forecast_n0, --debug), but for the port's --device
+    and one declared difference (ROADMAP.md section 3): the evaluate CLI
+    feeds exact fp32 points by default, where the JAX CLI's default int16
+    feed was a lever for its TPU host link."""
+    import importlib
+    jax_cli = importlib.import_module(f"futuredet_tpu.cli.{cli}")
+    port_cli = train if cli == "train" else evaluate
+    want = vars(jax_cli.parse_args([]))
+    got = vars(port_cli.parse_args([]))
+    assert set(got) - set(want) == {"device"} and set(want) <= set(got)
+    differ = {k for k in want if got[k] != want[k]}
+    assert differ == (set() if cli == "train" else {"feed_dtype"}), differ
+    assert got["model"] == "forecast_n0"
+    if cli == "train":
+        assert port_cli.parse_args(["--debug"]).debug
+
+
 @pytest.mark.parametrize("main,extra,item", [
     (evaluate.main, ["--space", "2"], "DDP"),
     (evaluate.main, ["--coordinator_address", "localhost:1",

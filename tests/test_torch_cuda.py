@@ -336,8 +336,10 @@ def test_small_train_step_card_against_the_cpu():
     for dev in ("cpu", "cuda"):
         m = build_detector(cfg, device=dev, seed=0).train()
         chip_smoke.shift_bn_biases(m)
+        # the host GT under "gt" (numpy, for the evaluator) stays put
         b = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
-                 {kk: vv.to(dev) for kk, vv in v.items()})
+                 {kk: (vv.to(dev) if isinstance(vv, torch.Tensor) else vv)
+                  for kk, vv in v.items()})
              for k, v in batch.items()}
         loss = float(forward_backward(m, b)["loss"].detach())
         out[dev] = (loss, {n: p.grad.cpu() for n, p in m.named_parameters()},
@@ -425,3 +427,101 @@ def test_pillar_reader_trains_on_the_card_as_on_the_cpu():
         tol = 1e-4 * max(1.0, float(t.abs().max()))
         assert float((gg[n] - t).abs().max()) <= tol, n
     assert not gc["pfn_layers.0.norm.bias"][:3].any()
+
+
+# (V, N, Cin, Cout, share of absent entries) of K2's bf16 family: every
+# (Cin, Cout) of the voxelnet main path, Cin not a multiple of 8 (scalar
+# row loads) or of 16 and 32 (zero-padded chunks), N off the 64-site tile,
+# Cout = 8, and tiles whose sites have all 27 neighbours
+K2_BF16_CASES = [
+    (5000, 5000, 5, 16, 0.6), (4000, 4000, 16, 16, 0.6),
+    (3000, 1111, 16, 32, 0.8), (3000, 3000, 32, 32, 0.6),
+    (3000, 1500, 32, 64, 0.8), (2000, 2000, 64, 64, 0.6),
+    (2000, 1200, 64, 128, 0.8), (1000, 1000, 128, 128, 0.55),
+    (1000, 1, 128, 128, 0.3), (2000, 65, 40, 64, 0.6),
+    (700, 700, 24, 8, 0.6), (700, 129, 3, 32, 0.5),
+    (5000, 128, 128, 128, 0.0), (5000, 256, 16, 32, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,N,cin,cout,absent", K2_BF16_CASES)
+def test_k2_bf16_family_matches_plain_version_on_the_card(V, N, cin, cout,
+                                                          absent):
+    """The bf16 family against its plain version (bf16 rows, fp32 products
+    and sums): 1e-5 of max(1, max|plain|), bit-identical when launched
+    again, exactly the bias for a table with no neighbour, counted on its
+    route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from futuredet_torch.ops.pallas_gather import (gather_conv,
+                                                   gather_conv_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, tab, w, b = k2_case(np.random.default_rng(V + N + cin), V, N, cin,
+                           cout, absent)
+    x, w = x.bfloat16(), w.bfloat16()
+    before = dict(gather_conv.launches_by_route)
+    got = gather_conv(x, tab, w, b)
+    again = gather_conv(x, tab, w, b)
+    torch.cuda.synchronize()
+    assert gather_conv.launches_by_route["bf16"] == before["bf16"] + 2
+    assert got.dtype == torch.float32
+    want = gather_conv_plain(x, tab, w, b)
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, again)
+    empty = torch.full_like(tab, V)
+    assert torch.equal(gather_conv(x, empty, w, b), b.expand(N, cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [
+    dict(compute_dtype="bfloat16", middle_sparse_dtype="bfloat16"),
+    dict(middle_gather_algo="window_bf16"),
+    dict(middle_sparse_dtype="bf16_packed"),
+    dict(middle_dense_from_stage=2, middle_dense_dtype="bfloat16")])
+def test_voxelnet_serving_knobs_card_against_the_cpu(change):
+    """A small VoxelNet (middle channels 8/16/64/64) under each serving
+    knob on the card and on the CPU from the same weights: K2 20 launches
+    less the dense stages', on the bf16 route where the knob rounds x and W,
+    and every head map within the bf16 tolerance of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+    from futuredet_torch import config
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.ops.pallas_gather import gather_conv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config.tiny_variant(config.get_config("forecast_n3dtf"))
+    voxel = dataclasses.replace(
+        cfg.voxel, pc_range=(-16.0, -16.0, -3.0, 16.0, 16.0, 3.0),
+        voxel_size=(0.5, 0.5, 0.15), max_voxels_eval=2048, max_points=2048)
+    cfg = cfg.replace(voxel=voxel, model=dataclasses.replace(
+        cfg.model, middle_channels=(8, 16, 64, 64), **change))
+    rng = np.random.default_rng(4)
+    P = voxel.max_points
+    pts = np.concatenate([rng.uniform(-16, 16, (1, P, 2)),
+                          rng.uniform(-3, 3, (1, P, 1)),
+                          rng.uniform(0, 1, (1, P, 2))], -1).astype(
+                              np.float32)
+    valid = rng.random((1, P)) < 0.95
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_detector(cfg, device=dev, seed=0)
+        before = dict(gather_conv.launches_by_route)
+        with torch.no_grad():
+            out[dev] = model(torch.from_numpy(pts).to(dev),
+                             torch.from_numpy(valid).to(dev))
+        torch.cuda.synchronize()
+        launched = {k: gather_conv.launches_by_route[k] - before[k]
+                    for k in before}
+    bf16 = "compute_dtype" in change or "window_bf16" in str(change)
+    dense = "middle_dense_from_stage" in change
+    assert sum(launched.values()) == (10 if dense else 20), launched
+    assert (launched["bf16"] == 20) == bf16, launched
+    for g, c in zip(out["cuda"], out["cpu"]):
+        for k in c:
+            ref = c[k].float()
+            tol = 0.05 * max(1.0, float(ref.abs().max()))
+            assert float((g[k].float().cpu() - ref).abs().max()) <= tol, k

@@ -231,15 +231,34 @@ def test_extra_conv_fold_matches_jax(jax_run):
                            **got}, strict=True)
 
 
-def test_unported_voxelnet_options_raise():
+@pytest.mark.parametrize("change,trains", [
+    (dict(middle="dense"), True), (dict(middle_dense_from_stage=2), True),
+    (dict(middle_gather_algo="window_bf16"), True),
+    (dict(middle_sparse_dtype="bfloat16"), False),
+    (dict(compute_dtype="bfloat16"), False),
+    (dict(middle_dense_from_stage=1, middle_dense_dtype="bfloat16"), False),
+    (dict(middle_sparse_dtype="bf16_packed"), True)])
+def test_unported_voxelnet_options_raise(change, trains):
+    """Every VoxelNet knob builds and infers; training under a bf16 knob
+    raises naming its ROADMAP item, the others train (window_bf16 and
+    bf16_packed as fp32, as the JAX package trains them)."""
     cfg = voxelnet_config(port_config)
-    for change in (dict(middle="dense"), dict(middle_dense_from_stage=2),
-                   dict(middle_gather_algo="window_bf16"),
-                   dict(middle_sparse_dtype="bfloat16"),
-                   dict(compute_dtype="bfloat16")):
-        bad = cfg.replace(model=dataclasses.replace(cfg.model, **change))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_detector(bad, device="cpu")
+    model = build_detector(cfg.replace(model=dataclasses.replace(
+        cfg.model, **change)), device="cpu")
+    pts, valid = (torch.from_numpy(a) for a in scene(cfg, 0))
+    with torch.no_grad():
+        preds = model(pts, valid)
+    assert preds[0]["hm"].shape == (1, 8, 8, 1)
+    assert all(bool(torch.isfinite(t).all()) for p in preds
+               for t in p.values())
+    model.train()
+    if trains:
+        with torch.no_grad():
+            assert torch.isfinite(model(pts, valid)[0]["hm"]).all()
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, queue 1: bf16 training"):
+            model(pts, valid)
     for algo in ("xpack", "loop", "stacked", "window", "hybrid"):
         build_detector(cfg.replace(model=dataclasses.replace(
             cfg.model, middle_gather_algo=algo, middle_map_format="bitmap",
