@@ -269,6 +269,31 @@ CUDA toolkit. Phases, one JSON line each (several for some):
   32. one full-width B = 1 train step of (e) on phase 10's scene through
       plain autograd: finite loss, no K2.
 
+  Training under the bf16 knobs and data parallelism (models/layers.py,
+  ops/sparse_conv.py::SparseConvFunction, parallel/):
+  33. a B = 1 train step on phase 10's scene under each BF16_TRAIN knob:
+      forecast_n3dtf under (a) compute_dtype + middle_sparse_dtype
+      bfloat16 (K2 20 forward on the bf16 route, 19 dx on the fp32
+      families) and (d) middle_dense_from_stage DENSE_FROM with
+      middle_dense_dtype (K2 10 + 9 dx, fp32), pp_forecast_n3dtf and
+      pp_forecast_n3dtf_two_stage (K1 once) under compute_dtype; counts
+      zeroed just before the step and read just after. The step split
+      (phase 13's) and peak MiB beside the fp32 step's; the card against
+      the CPU's step under the same knob by the BF16_* rule (the card's
+      fp32 step must break it); OVERFIT_STEPS steps of finite losses.
+      scripts/torch_train_bf16_phases.py times the steps in turns.
+  34. cli.train and cli.evaluate of forecast_n3dtf with
+      --coordinator_address / --num_processes 1 / --process_id 0 (a
+      one-rank NCCL group, left at the end; K2 39 a step, K1 once and K2
+      20 a scene); one pp_forecast_n3dtf step in the group against the
+      plain step under torch's deterministic algorithms, bit for bit when
+      two plain steps agree bit for bit, else within DP_SPREAD times
+      their distance; the step's ms in and out of the group; the
+      collectives two or more ranks add a
+      step (one differentiable all-reduce per BatchNorm with its
+      backward, one flat all-reduce of the gradients) timed at world size
+      1. NCCL refuses two ranks on one device: no multi-GPU figure.
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
@@ -414,6 +439,34 @@ SERVING_RTOL = 0.05
 # operands
 DENSE_FROM = 2
 DENSE_RTOL, DENSE_BF16_RTOL = 2e-4, 5e-2
+# the bf16 training phase (33): each knob's B = 1 train step beside its
+# fp32 step on phase 10's lidar-family scene
+BF16_TRAIN = (("a_bf16", VOX_NAME, {"compute_dtype": "bfloat16",
+                                    "middle_sparse_dtype": "bfloat16"}),
+              ("d_dense_bf16", VOX_NAME, {"middle_dense_from_stage":
+                                          DENSE_FROM,
+                                          "middle_dense_dtype": "bfloat16"}),
+              ("pillars_bf16", NAME, {"compute_dtype": "bfloat16"}),
+              ("two_stage_bf16", "pp_forecast_n3dtf_two_stage",
+               {"compute_dtype": "bfloat16"}))
+# phase 33's card-vs-CPU rule, that of tests/test_torch_train_bf16_*.py:
+# per quantity (each loss, grad_norm, and per top-level module the
+# gradients and the running statistics as one relative distance), the
+# card's distance from the CPU's bf16 step against the CPU fp32 step's
+# ("gap") and the CPU bf16 step's on the weights scaled by 1 + BF16_NUDGE
+# ("noise", the rounding flips that a bf16 forward amplifies layer by
+# layer): within max(BF16_GAP_FRACTION * gap, BF16_NOISE_FACTOR * noise,
+# a floor), and within BF16_GAP_FRACTION * gap where the gap stands
+# BF16_SIGNAL times above the noise. The CPU tests hold the port to 1.5x
+# JAX's own noise; the card and the CPU differ in every reduction's
+# order, hence 2x here
+BF16_GAP_FRACTION, BF16_NOISE_FACTOR, BF16_SIGNAL = 0.25, 2.0, 5.0
+BF16_NUDGE = 2.0 ** -20
+BF16_LOSS_ULPS, BF16_FP32_FLOOR = 2.0 ** -7, 1e-5
+# phase 34: a world-size-1 step against the plain step, when two plain
+# steps differ (an op without a deterministic kernel): within this many
+# times their distance (seen: 0.74x and 1.52x with no deterministic mode)
+DP_SPREAD = 4.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the metrics JSON and CSV the evaluate CLI writes in phases 17-19
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -3650,6 +3703,418 @@ def dense_middle_path(dev, card):
     return out
 
 
+def bf16_measures(runs, got):
+    """{quantity: (err, gap, noise, floor)} of run `got` against the CPU's
+    bf16 run "cpu" (phase 33's rule): "cpu32" gives the gap, "nudged" the
+    noise. Each run is {"losses", "grads", "stats"} of float64 CPU
+    tensors."""
+    ref = runs["cpu"]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def dist(r, kind, names):
+        num = sum(float(((runs[r][kind][n] - ref[kind][n]) ** 2).sum())
+                  for n in names)
+        den = sum(float((ref[kind][n] ** 2).sum()) for n in names)
+        return math.sqrt(num / max(den, 1e-60))
+    out = {}
+    for k in ref["losses"]:
+        out[f"loss:{k}"] = (rel(runs[got]["losses"][k], ref["losses"][k]),
+                            rel(runs["cpu32"]["losses"][k],
+                                ref["losses"][k]),
+                            rel(runs["nudged"]["losses"][k],
+                                ref["losses"][k]), BF16_LOSS_ULPS)
+    names = list(ref["grads"])
+
+    def norm(r):
+        return math.sqrt(sum(float((runs[r]["grads"][n] ** 2).sum())
+                             for n in names))
+    out["grad_norm"] = (abs(norm(got) - norm("cpu")) / norm("cpu"),
+                        abs(norm("cpu32") - norm("cpu")) / norm("cpu"),
+                        dist("nudged", "grads", names), BF16_FP32_FLOOR)
+    for kind in ("grads", "stats"):
+        pool = list(ref[kind])
+        for top in sorted({n.split(".")[0] for n in pool}):
+            sel = [n for n in pool if n.split(".")[0] == top]
+            out[f"{kind}:{top}"] = (dist(got, kind, sel),
+                                    dist("cpu32", kind, sel),
+                                    dist("nudged", kind, sel),
+                                    BF16_FP32_FLOOR)
+    return out
+
+
+def bf16_violations(measures):
+    """The quantities of `bf16_measures` beyond phase 33's limits."""
+    bad = {}
+    for key, (err, gap, noise, floor) in measures.items():
+        if gap >= BF16_SIGNAL * max(noise, BF16_FP32_FLOOR):
+            limit = BF16_GAP_FRACTION * gap
+        else:
+            limit = max(BF16_GAP_FRACTION * gap, BF16_NOISE_FACTOR * noise,
+                        floor)
+        if not err <= limit:
+            bad[key] = (err, limit)
+    return bad
+
+
+def bf16_cross_check(cfg, base, dev, clutter):
+    """Phase 33's correctness: one train step of the same weights and batch
+    under the knob on the card and on the CPU, with the CPU's fp32 step
+    and its bf16 step on nudged weights beside them (every BatchNorm bias
+    raised by BN_BIAS_SHIFT, as phase 12), and the card's fp32 step, which
+    the rule must reject. Returns the phase line's fields."""
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.train.step import forward_backward
+    runs = {}
+    for key, c, d, nudge in (("card", cfg, dev, 0.0), ("cpu", cfg, "cpu", 0.0),
+                             ("cpu32", base, "cpu", 0.0),
+                             ("nudged", cfg, "cpu", BF16_NUDGE),
+                             ("card32", base, dev, 0.0)):
+        m = build_detector(c, device=d, seed=0).train()
+        shift_bn_biases(m)
+        if nudge:
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.mul_(1 + nudge)
+        b_ = train_batch(c, TRAIN_SEED, d, clutter)
+        losses = forward_backward(m, b_)
+        runs[key] = {
+            "losses": {k: v.detach().double().cpu() for k, v in
+                       losses.items()},
+            "grads": {n: grad_of(p).cpu() for n, p in m.named_parameters()},
+            "stats": {n: t.double().cpu() for n, t in m.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))}}
+        del m, b_
+    card = bf16_measures(runs, "card")
+    bad = bf16_violations(card)
+    fp32_bad = bf16_violations(bf16_measures(runs, "card32"))
+    signal = [k for k, (_, gap, noise, _) in card.items()
+              if gap >= BF16_SIGNAL * max(noise, BF16_FP32_FLOOR)]
+    check(not bad, f"{cfg.name}: bf16 step card vs CPU beyond its limits "
+          f"{bad}")
+    check(fp32_bad, f"{cfg.name}: the card's fp32 step passes the bf16 rule")
+    return {"card_vs_cpu": {k: {"err": e, "gap": g, "noise": n}
+                            for k, (e, g, n, _) in card.items()},
+            "signal_quantities": signal,
+            "card_fp32_breaks": sorted(fp32_bad),
+            "gap_fraction": BF16_GAP_FRACTION,
+            "noise_factor": BF16_NOISE_FACTOR, "signal": BF16_SIGNAL,
+            "nudge": BF16_NUDGE}
+
+
+def bf16_train_path(dev, card, turns=False):
+    """Phase 33: a B = 1 train step under each BF16_TRAIN knob at full
+    width: launches by kernel and route, the step split (phase 13's) and
+    peak MiB beside the fp32 step's (in turns fp32, knob, knob, fp32 with
+    `turns`, else once each), the card against the CPU, and OVERFIT_STEPS
+    steps of finite losses. Returns per config {"k1", "k2", "k2_bf16"} of
+    the main-path step."""
+    import dataclasses
+
+    from futuredet_torch.config import get_config
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.ops import sparse_conv as sc_mod
+    from futuredet_torch.train.step import make_optimizer, train_step
+
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    dx_fn = sc_mod.subm_conv_dx
+    dx = dict.fromkeys(pallas_gather.ROUTES, 0)
+
+    def counting_dx(*args):
+        before = dict(k2.launches_by_route)
+        res = dx_fn(*args)
+        for r in dx:
+            dx[r] += k2.launches_by_route[r] - before[r]
+        return res
+
+    out = {}
+    for tag, base_name, change in BF16_TRAIN:
+        base = get_config(base_name)
+        vox = base.model.detector == "voxelnet"
+        clutter = TRAIN_CLUTTER if vox else PILLAR_TRAIN_CLUTTER
+        if not vox:
+            base = base.replace(voxel=dataclasses.replace(
+                base.voxel, max_points=MAX_POINTS))
+        cfg = base.replace(name=f"{base_name}+{tag}",
+                           model=dataclasses.replace(base.model, **change))
+        two = cfg.model.two_stage_refine
+        batch = train_batch(cfg, TRAIN_SEED, dev, clutter)
+        reps = 2 * (TRAIN_WARMUP + TRAIN_REPS) * (2 if turns else 1)
+        models = {key: build_detector(c, device=dev, seed=0).train()
+                  for key, c in (("fp32", base), (tag, cfg))}
+        opts = {key: make_optimizer(c, models[key], 1 + reps)
+                for key, c in (("fp32", base), (tag, cfg))}
+        # the main path: counts zeroed just before the step, read after
+        sc_mod.subm_conv_dx = counting_dx
+        try:
+            pallas_gather.reset_launches()
+            k1.launches = 0
+            dx.update(dict.fromkeys(dx, 0))
+            metrics = train_step(models[tag], opts[tag], batch, 0)
+            torch.cuda.synchronize()
+            routes = dict(k2.launches_by_route)
+            counts = {"k1": k1.launches,
+                      "k2_forward": k2.launches - sum(dx.values()),
+                      "k2_dx": sum(dx.values()),
+                      "k2_forward_by_route": {r: routes[r] - dx[r]
+                                              for r in dx},
+                      "k2_dx_by_route": dict(dx)}
+        finally:
+            sc_mod.subm_conv_dx = dx_fn
+        m = {k: v.detach().float().cpu() for k, v in metrics.items()}
+        check(all(bool(torch.isfinite(v).all()) for v in m.values()),
+              f"{cfg.name}: train metrics not finite {m}")
+        want_fwd = {"a_bf16": 20, "d_dense_bf16": 10}.get(tag, 0)
+        check(counts["k1"] == (1 if two else 0)
+              and counts["k2_forward"] == want_fwd
+              and counts["k2_dx"] == max(want_fwd - 1, 0)
+              and counts["k2_forward_by_route"]["bf16"]
+              == (20 if tag == "a_bf16" else 0)
+              and counts["k2_dx_by_route"]["bf16"] == 0,
+              f"{cfg.name}: train step launches {counts}")
+        train_step(models["fp32"], opts["fp32"], batch, 0)
+        times = {k: [] for k in models}
+        splits, peaks = dict.fromkeys(models), dict.fromkeys(models, 0.0)
+        for i, key in enumerate(("fp32", tag, tag, "fp32") if turns
+                                else ("fp32", tag)):
+            c = base if key == "fp32" else cfg
+            n_done = 1 + (TRAIN_WARMUP + TRAIN_REPS) * 2 * (
+                i // 2 if turns else 0)
+            ms, split, peak = step_times(c, models[key], opts[key], batch,
+                                         n_done)
+            times[key].append(ms)
+            splits[key] = split
+            peaks[key] = max(peaks[key], peak)
+        del models, opts
+        line = {"phase": "bf16_train", "model": cfg.name, "card": card,
+                "knobs": change, "scene": f"lidar family, seed {TRAIN_SEED}",
+                **counts, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "train_step_ms": times[tag],
+                "fp32_train_step_ms": times["fp32"],
+                "train_step_split_ms": splits[tag],
+                "fp32_train_step_split_ms": splits["fp32"],
+                "train_step_peak_mib": peaks[tag],
+                "fp32_train_step_peak_mib": peaks["fp32"],
+                "warmup": TRAIN_WARMUP, "reps": TRAIN_REPS}
+        # OVERFIT_STEPS steps of a fresh model: every loss finite
+        fresh = build_detector(cfg, device=dev, seed=0).train()
+        fopt = make_optimizer(cfg, fresh, OVERFIT_STEPS)
+        steps = [{k: v.detach().float().cpu()
+                  for k, v in train_step(fresh, fopt, batch, i).items()}
+                 for i in range(OVERFIT_STEPS)]
+        del fresh, fopt
+        check(all(bool(torch.isfinite(v).all()) for s_ in steps
+                  for v in s_.values()),
+              f"{cfg.name}: a loss of {OVERFIT_STEPS} steps not finite")
+        line["repeated_batch_losses"] = [float(s_["loss"]) for s_ in steps]
+        line.update(bf16_cross_check(cfg, base, dev, clutter))
+        emit(line)
+        out[cfg.name + "_train"] = {
+            "k1": counts["k1"], "k2": counts["k2_forward"] + counts["k2_dx"],
+            "k2_bf16": counts["k2_forward_by_route"]["bf16"]}
+    return out
+
+
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_path(dev, card, work):
+    """Phase 34: data parallelism at world size 1 on the card's backend
+    (NCCL; gloo when rehearsed on the CPU). The train CLI and the evaluate
+    CLI with --coordinator_address / --num_processes 1 / --process_id 0;
+    one step in the group against the plain step on the same weights and
+    batch (and a second plain step: the card's own run-to-run spread);
+    the step's ms outside, inside and again outside the group (the
+    wrapper adds no collective at world size 1); and the collectives a
+    step of two or more ranks would add, run and timed at world size 1. NCCL refuses two ranks on one device, so no
+    multi-GPU figure is taken. Returns the K1 / K2 counts of the CLIs."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    from futuredet_torch.config import get_config
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.models.layers import BatchNorm2d
+    from futuredet_torch.models.readers import MaskedBatchNorm
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.parallel import collectives as coll
+    from futuredet_torch.train import trainer
+    from futuredet_torch.train.step import make_optimizer, train_step
+
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    joined = []
+    init = coll.initialize_multihost
+
+    def recording_init(*a, **kw):
+        n = init(*a, **kw)
+        joined.append((dist.get_backend(), n, coll.rank()))
+        return n
+
+    def flags():
+        return ["--coordinator_address", f"127.0.0.1:{free_port()}",
+                "--num_processes", "1", "--process_id", "0"]
+
+    # 34.1 the train CLI (VoxelNet, one scene, two one-step epochs) ----
+    per_step = []
+
+    class Count(trainer.Hook):
+        def before_step(self, step, state, batch):
+            k1.launches = k2.launches = 0
+
+        def after_step(self, step, state, metrics):
+            torch.cuda.synchronize()
+            per_step.append({"k1": k1.launches, "k2": k2.launches,
+                             "loss": float(metrics["loss"])})
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            pass
+
+    ckpt_dir = os.path.join(work, "dp_train")
+    coll.initialize_multihost = recording_init
+    try:
+        state, logs, train_s = run_train_cli(
+            ["--model", VOX_NAME, "--synthetic", "1", "--epochs", "2",
+             "--batch_size", "1", "--work_dir", ckpt_dir,
+             "--device", dev.type] + flags(), Count())
+        out_path = os.path.join(OUT_DIR, "metrics_dp_eval.json")
+        summary, calls, totals, elogs, eval_s = run_evaluate(
+            ["--model", VOX_NAME, "--synthetic", "2", "--batch_size", "1",
+             "--checkpoint_dir", ckpt_dir, "--out", out_path,
+             "--device", dev.type] + flags())
+    finally:
+        coll.initialize_multihost = init
+    del state
+    check(joined == [(backend, 1, 0)] * 2 and not dist.is_initialized(),
+          f"the CLIs' process groups {joined}")
+    check(len(per_step) == 2 and all(
+        s_["k1"] == 0 and s_["k2"] == 39 and math.isfinite(s_["loss"])
+        for s_ in per_step), f"DP train CLI steps {per_step}")
+    check(calls == [(1, 20)] * 2 and os.path.exists(out_path),
+          f"DP evaluate CLI: {calls}, {out_path}")
+    check_summary(summary, "DP evaluate CLI")
+
+    # 34.2 one step in the group against the plain step ----------------
+    cfg = get_config(NAME)
+    cfg = cfg.replace(voxel=dataclasses.replace(cfg.voxel,
+                                                max_points=MAX_POINTS))
+    batch = train_batch(cfg, TRAIN_SEED, dev, PILLAR_TRAIN_CLUTTER)
+
+    def one_step():
+        # deterministic kernels where torch has them (the pillar reader's
+        # index_add_ and the cuDNN backward otherwise sum in a run-to-run
+        # order), so that the group's step can be held bit for bit
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            m = build_detector(cfg, device=dev, seed=0).train()
+            opt = make_optimizer(cfg, m, 1)
+            metrics = train_step(m, opt, batch, 0)
+            seen = {n: p.grad.detach().clone()
+                    for n, p in m.named_parameters()}
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        return float(metrics["loss"]), seen, m
+
+    # the step's ms outside the group, in it, and outside again, on one
+    # model (its updates go on)
+    timed = build_detector(cfg, device=dev, seed=0).train()
+    timed_opt = make_optimizer(cfg, timed, 3 * (TRAIN_WARMUP + TRAIN_REPS))
+    count = [0]
+
+    def timed_step():
+        train_step(timed, timed_opt, batch, count[0])
+        count[0] += 1
+
+    step_ms = [time_host(timed_step, TRAIN_WARMUP, TRAIN_REPS)]
+    loss_a, grads_a, _ = one_step()
+    address = f"127.0.0.1:{free_port()}"
+    coll.initialize_multihost(address, 1, 0, dev)
+    try:
+        step_ms.append(time_host(timed_step, TRAIN_WARMUP, TRAIN_REPS))
+        loss_dp, grads_dp, model = one_step()
+        # 34.3 what two or more ranks would add a step: one pmean of the
+        # statistics of every BatchNorm with its backward, and one flat
+        # all-reduce of the gradients
+        bns = [mod for mod in model.modules()
+               if isinstance(mod, (BatchNorm2d, MaskedBatchNorm))]
+        stats = [torch.zeros(2 * mod.weight.numel(), device=dev,
+                             requires_grad=True) for mod in bns]
+        flat = torch.cat([g.reshape(-1) for g in grads_dp.values()])
+
+        def collectives():
+            total = sum(all_reduce(s_).sum() for s_ in stats)
+            total.backward()
+            dist.all_reduce(flat)
+
+        coll_ms = time_host(collectives, WARMUP, REPS)
+        x = torch.arange(6.0, device=dev).requires_grad_()
+        y = all_reduce(x)
+        y.backward(torch.ones_like(y))
+        check(torch.equal(y.detach(), x.detach())
+              and torch.equal(x.grad, torch.ones_like(x)),
+              "a differentiable all_reduce of one rank is not the identity")
+        gathered = coll._all_gather_np(np.arange(12, dtype=np.int32)
+                                       .reshape(3, 4))
+        check(np.array_equal(gathered, np.arange(12).reshape(3, 4)),
+              "all_gather of one rank")
+        del model
+    finally:
+        coll.leave(address)
+    step_ms.append(time_host(timed_step, TRAIN_WARMUP, TRAIN_REPS))
+    del timed, timed_opt
+    loss_b, grads_b, _ = one_step()
+
+    def worst(g):
+        return max(float((g[n] - grads_a[n]).abs().max()) for n in g)
+    spread, dp_err = worst(grads_b), worst(grads_dp)
+    # the group adds no arithmetic at world size 1: bit for bit where two
+    # plain steps agree bit for bit; where an op without a deterministic
+    # kernel moves them apart, within DP_SPREAD times their distance
+    repeatable = spread == 0.0 and loss_b == loss_a
+    check((dp_err == 0.0 and loss_dp == loss_a) if repeatable
+          else dp_err <= DP_SPREAD * spread,
+          f"the world-size-1 step {dp_err} off the plain step (loss "
+          f"{loss_dp} vs {loss_a}); two plain steps lie {spread} apart")
+    emit({"phase": "data_parallel", "card": card, "backend": backend,
+          "world_size": 1, "process_groups": joined,
+          "train_cli_steps": per_step, "train_cli_s": round(train_s, 3),
+          "evaluate_cli_launches": calls, "evaluate_cli_s": round(eval_s, 3),
+          "metrics": os.path.relpath(out_path, ROOT),
+          "step_model": NAME, "loss_plain": loss_a, "loss_dp": loss_dp,
+          "loss_plain_again": loss_b,
+          "grad_max_abs_err_dp_vs_plain": dp_err,
+          "grad_max_abs_err_plain_vs_plain": spread,
+          "plain_steps_bit_identical": repeatable, "dp_spread": DP_SPREAD,
+          "bit_identical": dp_err == 0.0 and loss_dp == loss_a,
+          "collectives_added_ms_a_step_at_two_or_more_ranks": coll_ms,
+          "batchnorms": len(bns), "gradient_floats": int(flat.numel()),
+          "step_ms_plain_group_plain": step_ms,
+          "added_ms_a_step_at_world_size_1":
+              step_ms[1] - (step_ms[0] + step_ms[2]) / 2,
+          "multi_gpu": "not measured: one card, and NCCL refuses two "
+                       "ranks on one device"})
+    return {VOX_NAME + "_dp_train_cli": {"k1": sum(s_["k1"]
+                                                   for s_ in per_step),
+                                         "k2": sum(s_["k2"]
+                                                   for s_ in per_step)},
+            VOX_NAME + "_dp_eval_cli": {"k1": totals[0], "k2": totals[1]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3708,6 +4173,8 @@ def main() -> int:
         two_cli = two_stage_cli_path(dev, card, pp_dir, pp_map)
         serving = serving_path(dev, card)
         dense = dense_middle_path(dev, card)
+        bf16_train = bf16_train_path(dev, card)
+        dp = dp_path(dev, card, work)
 
     evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta,
              **nusc, **modes_cli, **two_cli, **serving["paths"], **dense,
@@ -3716,6 +4183,7 @@ def main() -> int:
                                          + v["k2_dx"]}
                 for n, v in modes_train.items()},
              **{n: {"k1": v["k1"], "k2": v["k2"]} for n, v in two.items()},
+             **bf16_train, **dp,
              **{f"{n}_train": {"k1": v["k1"], "k2": v["k2_forward"]
                                + v["k2_dx"]}
                 for n, v in two_train.items()}}
@@ -3769,9 +4237,10 @@ def main() -> int:
         "route": "cuda",
         "source": "futuredet_torch/csrc/gather_conv_kernel.cu",
         "replaces": "futuredet_tpu/ops/pallas_gather.py:49",
-        "launches": sum(v["k2_bf16"] for v in serving["paths"].values()),
-        "launches_by_path": {p: v["k2_bf16"]
-                             for p, v in serving["paths"].items()},
+        "launches": sum(v["k2_bf16"] for v in {**serving["paths"],
+                                                **bf16_train}.values()),
+        "launches_by_path": {p: v["k2_bf16"] for p, v in
+                             {**serving["paths"], **bf16_train}.items()},
         "matched": True, "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],

@@ -25,6 +25,17 @@ double flip, `--tta map|box`; a two-stage model's refined detections,
 without `--tta`) runs on the device; the detections are copied
 to the host behind the batch's work, and the host tail of a batch (linking,
 records) runs while the card computes the next one (a queue of depth 2).
+
+Multi-process evaluation, one process per card with the train CLI's
+`--coordinator_address`, `--num_processes` and `--process_id` (NCCL; gloo
+with `--device cpu`): each rank evaluates a strided share of the batches
+(synthetic) or samples (infos, `batches_from_dataset(num_shards,
+shard_id)`), every batch's detections, GT and tokens are gathered to
+every rank (`parallel/collectives.py::gather_eval_batch`), each rank
+scores the whole set, and rank 0 writes the metrics and the
+`--extractBox` pickle, as the JAX CLI does
+(`futuredet_tpu/cli/evaluate.py:90-127,249-256`). Every rank must get as
+many batches as the others.
 """
 from __future__ import annotations
 
@@ -38,6 +49,8 @@ import time
 from collections import deque
 
 import numpy as np
+
+from ..parallel.mesh import SPATIAL_SHARDING
 
 log = logging.getLogger(__name__)
 
@@ -103,9 +116,12 @@ def parse_args(argv=None):
                         "'box' ensembles per-flip detections")
     p.add_argument("--out", default=None, help="metrics json path")
     p.add_argument("--coordinator_address", default=None,
-                   help="multi-process evaluation (not ported)")
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+                   help="multi-process evaluation: host:port of rank 0, "
+                        "where the torch.distributed process group meets")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="ranks of the process group, one per card")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true",
                    help="shrunken geometry for smoke tests")
@@ -118,11 +134,8 @@ def parse_args(argv=None):
 def refuse_unported(args, cfg) -> None:
     """Flags whose paths the port does not have yet raise, naming their
     ROADMAP.md item."""
-    if args.space > 1 or args.coordinator_address \
-            or (args.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "--space > 1 and multi-process evaluation are not ported yet "
-            "(ROADMAP.md, queue 1: DDP)")
+    if args.space > 1:
+        raise NotImplementedError(SPATIAL_SHARDING)
 
 
 def synthetic_batches(cfg, n: int, batch_size: int, seed: int):
@@ -208,9 +221,29 @@ def write_csv(summary, path: str) -> None:
 
 
 def main(argv=None):
+    from ..config import get_config, tiny_variant
+    from ..models.detector import resolve_device
+    from ..parallel.collectives import initialize_multihost, leave, rank
+
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    cfg = get_config(args.model)
+    if args.tiny:
+        cfg = tiny_variant(cfg)
+    refuse_unported(args, cfg)
+    n_proc = initialize_multihost(
+        args.coordinator_address, args.num_processes, args.process_id,
+        resolve_device(args.device) if args.coordinator_address else None)
+    try:
+        return _evaluate(args, cfg, n_proc, rank())
+    finally:
+        leave(args.coordinator_address)
+
+
+def _evaluate(args, cfg, n_proc: int, me: int):
     import torch
 
-    from ..config import get_config, tiny_variant
     from ..data.feed import pack_points
     from ..data.pipeline import batches_from_dataset, info_dataset
     from ..data.prefetch import prefetch
@@ -220,14 +253,10 @@ def main(argv=None):
                                   multitask_detection_records)
     from ..eval.metrics import evaluate_forecasts
     from ..models.detector import resolve_device
+    from ..parallel.collectives import gather_eval_batch
 
-    args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
-    cfg = get_config(args.model)
-    if args.tiny:
-        cfg = tiny_variant(cfg)
-    refuse_unported(args, cfg)
+    if n_proc > 1:
+        log.info("multi-process evaluation: process %d/%d", me, n_proc)
     if args.tta != "none" and cfg.model.head.bev_map:
         # the JAX package's TTA forward takes no map either
         # (futuredet_tpu/cli/evaluate.py:197-204)
@@ -246,14 +275,17 @@ def main(argv=None):
         # re-scoring a saved detections pkl needs no model or checkpoint
         eval_batches, n_b = [], 0
     elif args.synthetic:
+        # this rank's strided share (the JAX CLI's)
         eval_batches = synthetic_batches(cfg, args.synthetic,
-                                         args.batch_size, args.seed)
+                                         args.batch_size,
+                                         args.seed)[me::n_proc]
         n_b = len(eval_batches)
     elif args.info_path:
         cfg, ds = info_dataset(cfg, args.info_path, train=False)
         eval_batches = prefetch(batches_from_dataset(
-            ds, cfg, args.batch_size, shuffle=False, loop=False), depth=2)
-        n_b = len(ds) // args.batch_size
+            ds, cfg, args.batch_size, shuffle=False, loop=False,
+            num_shards=n_proc, shard_id=me), depth=2)
+        n_b = len(range(me, len(ds), n_proc)) // args.batch_size
     else:
         raise SystemExit(
             "no dataset: pass --info_path <infos pkl> or --synthetic N")
@@ -275,7 +307,11 @@ def main(argv=None):
         det, ready, gt, tokens = item
         if ready is not None:
             ready.synchronize()       # this batch's copy, not the next one
-        det = host_detections(det)
+        if n_proc > 1 and not args.eval_only:
+            # every rank scores the whole batch (the JAX CLI's gather)
+            det, gt, tokens = gather_eval_batch(det, gt, tokens)
+        else:
+            det = host_detections(det)
         if args.extractBox:
             saved.append((det, gt, tokens))
         if multitask:
@@ -383,7 +419,7 @@ def main(argv=None):
             log.info("speed test: %.3f ms/sample over %d middle-third "
                      "batches (%.1f samples/s)", 1e3 * float(np.mean(lat)),
                      len(lat), 1.0 / float(np.mean(lat)))
-        if args.extractBox:
+        if args.extractBox and me == 0:
             with open(pred_path, "wb") as f:
                 pickle.dump(saved, f)
             log.info("detections saved to %s", pred_path)
@@ -394,6 +430,10 @@ def main(argv=None):
         static_only=args.static_only,
         association_oracle=args.association_oracle)
     summary = results.summary()
+    if me != 0:
+        # every rank holds the gathered records and the same metrics; rank
+        # 0 writes them
+        return summary
     out_path = args.out or f"metrics_{args.model}_{args.forecast_mode}.json"
     with open(out_path, "w") as f:
         json.dump(summary, f, indent=2)

@@ -26,8 +26,23 @@ the first step:
       --synthetic 64 --first_stage_checkpoint work/pp --work_dir work/pp2
 
 It runs on the card unless given `--device cpu`, and raises when no card is
-found. The profiler, spatial sharding and multi-process training raise,
-naming their ROADMAP.md items.
+found.
+
+Data-parallel training runs one process per card, each started with the
+same flags and its own `--process_id` (0 .. `--num_processes` - 1), all
+meeting at `--coordinator_address host:port` (rank 0 listens there): NCCL
+between cards, gloo with `--device cpu`. Each rank takes its strided
+share of the infos (`batches_from_dataset(num_shards, shard_id)`; every
+rank trains on the same `--synthetic` scenes, as the JAX CLI does), the
+step averages BatchNorm statistics and gradients over the ranks, and rank
+0 writes the checkpoints. `--autoscale_lr` scales lr_max by the world
+size. `--batch_size` is per rank:
+
+  python -m futuredet_torch.cli.train --model forecast_n3dtf --info_path P \
+      --coordinator_address 10.0.0.1:29500 --num_processes 8 --process_id R
+
+The profiler and spatial sharding (`--space > 1`) raise, naming their
+ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -38,6 +53,8 @@ import logging
 import os
 
 import numpy as np
+
+from ..parallel.mesh import SPATIAL_SHARDING
 
 log = logging.getLogger(__name__)
 
@@ -72,7 +89,7 @@ def parse_args(argv=None):
                         "(ref Trainer.val workflow)")
     p.add_argument("--autoscale_lr", action="store_true",
                    help="scale lr_max linearly by the number of data-"
-                        "parallel devices (ref tools/train.py:94-95)")
+                        "parallel ranks (ref tools/train.py:94-95)")
     p.add_argument("--space", type=int, default=1,
                    help="spatial sharding of the BEV rows (not ported)")
     p.add_argument("--first_stage_checkpoint", default=None,
@@ -80,9 +97,12 @@ def parse_args(argv=None):
                         "in this directory of the single-stage config into "
                         "the first stage")
     p.add_argument("--coordinator_address", default=None,
-                   help="multi-process training (not ported)")
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+                   help="data-parallel training: host:port of rank 0, where "
+                        "the torch.distributed process group meets")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="ranks of the process group, one per card")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank")
     p.add_argument("--tiny", action="store_true",
                    help="shrunken geometry for smoke tests")
     p.add_argument("--debug", action="store_true",
@@ -104,11 +124,8 @@ def refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             "--profile: utils/profiling.py is not ported yet (ROADMAP.md, "
             "queue 1: long tail)")
-    if args.space > 1 or args.coordinator_address \
-            or (args.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "--space > 1 and multi-process training are not ported yet "
-            "(ROADMAP.md, queue 1: DDP)")
+    if args.space > 1:
+        raise NotImplementedError(SPATIAL_SHARDING)
 
 
 def train_config(cfg, args, n_devices: int = 1):
@@ -191,10 +208,12 @@ def first_stage_graft(args, device):
 
 def info_batches(cfg, args, batch_size: int, pin_memory: bool):
     """The real-data branch of the JAX CLI: GT-AUG unless --no_gt_aug, the
-    CBGS-resampled train dataset of --info_path, and its looping batches
-    without the host `gt` and `tokens`. Returns (cfg with the data's point
-    width, batches, steps per epoch)."""
+    CBGS-resampled train dataset of --info_path, and this rank's strided
+    share of its looping batches without the host `gt` and `tokens`.
+    Returns (cfg with the data's point width, batches, steps per
+    epoch)."""
     from ..data.pipeline import batches_from_dataset, info_dataset
+    from ..parallel.collectives import rank, world_size
 
     # GT-AUG paste sampler (ref Preprocess builds it whenever the config
     # carries a db_sampler dict, preprocess.py:103-106; groups from
@@ -209,15 +228,17 @@ def info_batches(cfg, args, batch_size: int, pin_memory: bool):
     batches = ({k: v for k, v in b.items() if k not in ("gt", "tokens")}
                for b in batches_from_dataset(ds, cfg, batch_size,
                                              seed=args.seed,
-                                             pin_memory=pin_memory))
-    return cfg, batches, max(len(ds) // batch_size, 1)
+                                             pin_memory=pin_memory,
+                                             num_shards=world_size(),
+                                             shard_id=rank()))
+    return cfg, batches, max(len(ds) // (batch_size * world_size()), 1)
 
 
 def main(argv=None):
     from ..config import get_config, tiny_variant
-    from ..data.synthetic import make_batch
     from ..models.detector import resolve_device
-    from ..train.trainer import TensorBoardHook, train
+    from ..parallel.collectives import initialize_multihost, leave, rank
+    from ..parallel.mesh import data_axis_size
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
@@ -233,7 +254,23 @@ def main(argv=None):
         raise SystemExit(
             "no dataset: pass --info_path <infos pkl> or --synthetic N")
     dev = resolve_device(args.device)
-    cfg = train_config(cfg, args)
+    n_proc = initialize_multihost(args.coordinator_address,
+                                  args.num_processes, args.process_id, dev)
+    try:
+        if n_proc > 1:
+            log.info("data-parallel training: process %d/%d", rank(),
+                     n_proc)
+        return _train(args, cfg, dev, data_axis_size(args.space))
+    finally:
+        leave(args.coordinator_address)
+
+
+def _train(args, cfg, dev, n_data: int):
+    from ..data.synthetic import make_batch
+    from ..parallel.collectives import rank
+    from ..train.trainer import TensorBoardHook, train
+
+    cfg = train_config(cfg, args, n_data)
     work_dir = args.work_dir or os.path.abspath(
         f"models/{args.experiment}/{args.dataset}_{args.architecture}_"
         f"{args.model}_detection")
@@ -255,7 +292,7 @@ def main(argv=None):
     val_fn = make_val_fn(cfg, args.val_synthetic, dev) \
         if args.val_synthetic else None
     hooks = []
-    if args.tensorboard:
+    if args.tensorboard and rank() == 0:
         hooks.append(TensorBoardHook(os.path.join(work_dir, "tb"),
                                      interval=cfg.train.log_interval))
     init_transform = (first_stage_graft(args, dev)

@@ -383,7 +383,8 @@ def _collate(samples, cfg: ExperimentConfig, device_targets: bool,
 def batches_from_dataset(ds, cfg: ExperimentConfig, batch_size: int,
                          shuffle: bool = True, seed: int = 0,
                          loop: bool = True, device_targets: bool = True,
-                         pin_memory: bool = False) -> Iterator[dict]:
+                         pin_memory: bool = False, num_shards: int = 1,
+                         shard_id: int = 0) -> Iterator[dict]:
     """Assemble batches of torch CPU tensors.
 
     device_targets=True (default): batches carry the raw GT arrays under
@@ -396,15 +397,21 @@ def batches_from_dataset(ds, cfg: ExperimentConfig, batch_size: int,
     caller asks for it only when the batches go to a card (pinning needs
     one). Under the prefetcher the pinning runs in its thread.
 
-    The per-epoch reseed (ref DistSamplerSeedHook) falls out of advancing
-    one rng stream each epoch."""
+    num_shards / shard_id: the rank's strided share of each epoch's order
+    in a data-parallel run (`futuredet_tpu/data/pipeline.py:301-329`, the
+    reference's DistributedGroupSampler): every rank draws the same
+    permutation from the same seed and takes every num_shards-th sample
+    from shard_id on. The per-epoch reseed (ref DistSamplerSeedHook) falls
+    out of advancing one rng stream each epoch."""
     rng = np.random.default_rng(seed)
-    if loop and len(ds) < batch_size:
+    if loop and len(ds) // num_shards < batch_size:
         raise ValueError(
-            f"dataset ({len(ds)} samples) is smaller than "
-            f"batch_size={batch_size}: the loop would never yield a batch")
+            f"dataset shard ({len(ds)} samples / {num_shards} shards) is "
+            f"smaller than batch_size={batch_size}: the loop would never "
+            f"yield a batch (and the other ranks would wait on this one)")
     while True:
         order = rng.permutation(len(ds)) if shuffle else np.arange(len(ds))
+        order = order[shard_id::num_shards]
         for i in range(0, len(order) - batch_size + 1, batch_size):
             samples = [ds.sample(int(j)) for j in order[i:i + batch_size]]
             yield _collate(samples, cfg, device_targets, pin_memory)

@@ -17,7 +17,15 @@ rvel and rrot read (`two_stage_reverse_conv`) when those heads exist.
 
 Each SepHead branch is its own conv tower, as in the reference. The JAX
 package fuses branches into one wide conv on the TPU; that is a TPU
-formulation over the same parameters and is not ported. Convs run NCHW;
+formulation over the same parameters and is not ported. Under
+`compute_dtype` the two differ: the fused towers normalise in bf16
+(`futuredet_tpu/models/center_head.py:194-220`), where every tower here
+normalises in fp32 as flax's BatchNorm does, as the JAX per-branch
+towers (`SepHead(fuse_branches=False)`) do. In training the fused
+towers' backward on XLA:CPU sums each channel's cotangent over the batch
+in bf16, which saturates (`tests/test_torch_bf16_grads.py`); the port's
+towers are held to the JAX per-branch towers
+(`tests/test_torch_train_bf16_pillars.py`). Convs run NCHW;
 `CenterHead.forward` returns dicts of NHWC maps, the JAX layout.
 
 `compute_dtype` (bf16 serving, `futuredet_tpu/models/center_head.py:

@@ -19,7 +19,11 @@ and the dense middle forms (`middle_dense_from_stage`,
 `middle_dense_dtype`; `models/middle.py`) and `middle="dense"`, the
 JAX `_dense_path` (mean VFE, `voxel_embed`, 8 z-groups scattered at
 stride 4, `mid_conv0/1`, then the RPN and the head, all fp32 whatever
-`compute_dtype` says, as there). Training under a bf16 knob raises.
+`compute_dtype` says, as there). They train too, with the JAX package's
+dtypes in the backward (`models/layers.py`, `ops/sparse_conv.py::
+SparseConvFunction`, `models/middle.py::SparseConv.dense`); `window*`,
+`hybrid` and `bf16_packed` train as fp32 (`SparseMiddleEncoder.conv_algo`,
+`conv_form`).
 """
 from __future__ import annotations
 
@@ -45,22 +49,6 @@ GATHER_ALGOS = ("xpack", "loop", "stacked", "window", "window_bf16",
                 "hybrid")
 SPARSE_DTYPES = (None, "bfloat16", "bf16_packed")
 DENSE_ZGROUPS, DENSE_EMBED = 8, 32     # the JAX _dense_path's z-groups, width
-
-
-def refuse_bf16_training(cfg: ExperimentConfig) -> None:
-    """Training under a knob that puts bf16 arithmetic into the forward is
-    not ported: K2's bf16 family has no input gradient yet and the towers'
-    bf16 backward is not held to the JAX step."""
-    m = cfg.model
-    knobs = [k for k, on in (("compute_dtype", m.compute_dtype is not None),
-                             ("middle_sparse_dtype",
-                              m.middle_sparse_dtype == "bfloat16"),
-                             ("middle_dense_dtype",
-                              m.middle_dense_dtype is not None)) if on]
-    if knobs:
-        raise NotImplementedError(
-            f"training under {', '.join(knobs)}: bf16 serving only "
-            "(ROADMAP.md, queue 1: bf16 training)")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -110,8 +98,6 @@ class PointPillarsDetector(nn.Module):
         1) ego map of a bev_map config -> per task a dict of NHWC head
         maps; with `return_bev`, (those, the (B, H, W, C) neck output) for
         the second stage's pooling."""
-        if self.training:
-            refuse_bf16_training(self.cfg)
         canvas = self.reader(points, points_valid)            # (B, H, W, C)
         x = self.neck(canvas.permute(0, 3, 1, 2))
         return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
@@ -181,8 +167,6 @@ class VoxelNetDetector(nn.Module):
         """points (B, P, F) f32, points_valid (B, P) bool, and the (B, H, W,
         1) ego map of a bev_map config -> per task a dict of NHWC head
         maps; with `return_bev`, (those, the (B, H, W, C) neck output)."""
-        if self.training:
-            refuse_bf16_training(self.cfg)
         feats, vm = self.voxelize(points, points_valid)
         if self.cfg.model.middle == "dense":
             x = self.dense_bev(feats, vm, points.shape[0])

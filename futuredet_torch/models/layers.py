@@ -13,7 +13,9 @@ casts its input, weight and bias to bf16 and returns bf16; a BatchNorm
 computes its statistics and normalises in fp32 and returns bf16, as
 `flax.linen.BatchNorm(dtype=bf16)` does. Without it, an input of another
 float type is promoted to the parameters' type, as jnp promotes bf16 with
-fp32.
+fp32. Training follows flax's dtype at every step of the backward: a
+bf16 conv's gradients are bf16 products (dW promoted to the fp32
+parameter by the cast's backward), the BatchNorm's fp32 (`BatchNorm2d`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import pmean, world_size
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; flax momentum 0.99
@@ -39,7 +43,9 @@ def torch_dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d (same parameters and keys) in `compute_dtype`."""
+    """nn.Conv2d (same parameters and keys) in `compute_dtype`, where the
+    bias is added to the conv's rounded output, as flax's `nn.Conv` adds
+    it."""
 
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
                  **kwargs):
@@ -51,8 +57,11 @@ class Conv2d(nn.Conv2d):
                                            or self.weight.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(self.cast(x), self.cast(self.weight),
-                                  self.cast(self.bias))
+        if self.compute_dtype is None or self.bias is None:
+            return self._conv_forward(self.cast(x), self.cast(self.weight),
+                                      self.cast(self.bias))
+        y = self._conv_forward(self.cast(x), self.cast(self.weight), None)
+        return y + self.cast(self.bias)[:, None, None]
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -102,8 +111,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     training step updates `running_var` with the BIASED batch variance, as
     flax's BatchNorm does (`futuredet_tpu/models/layers.py:43-45`); torch's
     own update uses the unbiased one. The batch is normalised with the
-    biased variance either way. In `compute_dtype` the statistics and the
-    normalisation are fp32 and the output is cast to it."""
+    biased variance either way.
+
+    In `compute_dtype`, eval normalises in fp32 with the running
+    statistics and casts the output to it. Training under
+    `compute_dtype`, and every training step of a data-parallel run,
+    takes flax's own formula (`flax.linen.normalization._compute_stats`,
+    `_normalize`): E[x] and E[x^2] in fp32 over the batch, averaged over
+    the ranks (`parallel/collectives.py::pmean`, differentiable, the JAX
+    `axis_name`), var = max(0, E[x^2] - E[x]^2), then (x - mean) *
+    (rsqrt(var + eps) * weight) + bias in fp32, whose gradient reaches a
+    bf16 x rounded to bf16, as jnp's promotion does."""
 
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
                  **kwargs):
@@ -111,7 +129,25 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and (self.compute_dtype is not None
+                              or world_size() > 1):
+            return self._flax_train(x)
         y = self._normalize(x.to(self.weight.dtype))
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+    def _flax_train(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(self.weight.dtype)
+        mean, mean2 = pmean(xf.mean((0, 2, 3)),
+                            torch.square(xf).mean((0, 2, 3)))
+        var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean)
+            self.running_var.mul_(keep).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        m, v, w, b = (t[:, None, None]
+                      for t in (mean, var, self.weight, self.bias))
+        y = (x - m) * (torch.rsqrt(v + self.eps) * w) + b
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
     def _normalize(self, x: torch.Tensor) -> torch.Tensor:

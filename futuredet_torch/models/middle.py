@@ -24,7 +24,9 @@ The input form of each sparse conv follows the JAX encoder's knobs
 (`futuredet_tpu/models/middle.py:149-179,225-238`; `conv_form`):
 
   * `sparse_dtype="bfloat16"` and `gather_algo="window_bf16"`: x and W
-    rounded to bf16, products summed in fp32 (K2's bf16 family); under
+    rounded to bf16, products summed in fp32 (K2's bf16 family; in
+    training the backward runs on the fp32 weights, K2's fp32 families,
+    `ops/sparse_conv.py::SparseConvFunction`); under
     `window` with bf16 inputs only x is rounded (the Pallas kernel selects
     bf16 rows and multiplies in fp32);
   * `packed_pairs` (`middle_sparse_dtype="bf16_packed"`): at the stages
@@ -93,10 +95,13 @@ class SparseConv(nn.Module):
                 inverse_table: torch.Tensor = None,
                 form: Optional[str] = None) -> torch.Tensor:
         """(N_in, Cin) fp32 -> (N_out, Cout) fp32, with the input `form`
-        of `conv_form`."""
+        of `conv_form`. Under BF16 only x is cast here, outside the conv
+        (the JAX encoder's `cast`); the fp32 weights go into
+        `subm_conv_apply`, which rounds them for the forward alone, so
+        that the backward runs on them in fp32 as the JAX VJPs do."""
         w = self.weight.reshape(27, self.cin, self.cout)
         if form == BF16:
-            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            x = x.to(torch.bfloat16)
         elif form == ROUND_X:
             x = x.to(torch.bfloat16).float()
         elif form == TRUNC_X:
@@ -108,7 +113,17 @@ class SparseConv(nn.Module):
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """The same conv over a dense (B, Cin, Z, Y, X) canvas ->
         (B, Cout, Z', Y', X') fp32 (the JAX `DenseConv3d`). With `dtype`
-        the operands are rounded to it and the products summed in fp32."""
+        the operands are rounded to it and the products summed in fp32.
+
+        Its gradients under `dtype` are computed in fp32 and each is
+        rounded to `dtype` on its way back through the rounding of its
+        operand, then widened again: d(canvas) and dW carry bf16 values.
+        That is JAX's rule for a mixed-precision product (the transpose of
+        `dot_general` converts its fp32 result to the operand's dtype).
+        The JAX `DenseConv3d` itself cannot be differentiated under a
+        compute dtype: the transpose of `conv_general_dilated` passes the
+        fp32 cotangent and the bf16 operand to one conv, which raises
+        (jax 0.9.0; `tests/test_torch_train_bf16_dense.py`)."""
         w = self.weight.permute(4, 3, 0, 1, 2)        # (Cout, Cin, kd, kh, kw)
         if dtype is not None:
             canvas, w = canvas.to(dtype).float(), w.to(dtype).float()

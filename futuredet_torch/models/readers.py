@@ -20,6 +20,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..parallel.collectives import pmean
 from .layers import BN_EPS, BN_MOMENTUM
 
 
@@ -37,7 +38,10 @@ class MaskedBatchNorm(nn.Module):
     each sample's mean and its variance around that mean, each averaged
     over the samples (a sample with no row counts with zeros). Without
     `sample` they pool every row, as the pillar reader and dense towers
-    do."""
+    do. In a data-parallel run each rank's mean and variance (around its
+    own mean) are then averaged over the ranks, differentiably
+    (`parallel/collectives.py::pmean`), as the JAX `axis_name` pmean
+    does; every rank holds the same number of samples."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -65,7 +69,10 @@ class MaskedBatchNorm(nn.Module):
         the batch's, as the JAX module's variables are when a later call of
         the same apply reads them (the pillar reader's phantom row)."""
         if self.training:
-            mean, var = self._batch_stats(x, valid, sample, num_samples)
+            # a data-parallel run averages them over the ranks, the JAX
+            # pmean over ("batch", "data")
+            mean, var = pmean(*self._batch_stats(x, valid, sample,
+                                                 num_samples))
             keep = 1.0 - self.momentum
             run_mean = keep * self.running_mean + self.momentum * mean
             run_var = keep * self.running_var + self.momentum * var

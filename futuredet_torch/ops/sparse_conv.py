@@ -19,7 +19,9 @@ middle encoder (`det3d/models/backbones/scn.py:2-3`):
     again a gather-conv through K2, over the same table with flipped,
     transposed weights (submanifold) or over the inverse table
     (`strided_inverse_table`, strided); the weight gradient is one stacked
-    gather and one matmul per conv.
+    gather and one matmul per conv. Under bf16 features the forward runs
+    on K2's bf16 family and the backward on its fp32 families, as the JAX
+    VJPs do.
 
 Like spconv, every stage is sized per scene and no site is ever dropped,
 so there is no capacity and no drop counter. The JAX package's x-packed
@@ -225,12 +227,24 @@ class SparseConvFunction(torch.autograd.Function):
     """K2 forward; dx through K2 (`subm_conv_dx`) only where the input
     needs it (the voxel features of `conv_input` do not: 5 input channels
     are no K2 output width); dW (`subm_conv_dw`) and db = sum(dy) as
-    PyTorch ops."""
+    PyTorch ops.
+
+    `weights` are the parameters' own fp32, whatever the features' type.
+    bf16 features take the weights rounded to bf16 in the forward alone
+    (K2's bf16 family), as the JAX `_gather_conv` rounds them inside its
+    custom VJP (`futuredet_tpu/ops/sparse_conv.py:621-629`, `conv_x3`
+    `:466-469`). The backward is the JAX one (`_subm_conv_sym_vjp`
+    `:675-691`, `_strided_conv_vjp` `:749-764`): dx is an fp32
+    gather-conv of the fp32 cotangent with the fp32 weights (K2's fp32
+    families), rounded to the features' type as `dx.astype(x.dtype)`
+    does; dW is an fp32 product of the gathered (bf16-valued) rows and
+    the fp32 cotangent, and stays fp32."""
 
     @staticmethod
     def forward(ctx, features, table, weights, bias, inverse_table):
         ctx.save_for_backward(features, table, weights, inverse_table)
-        return gather_conv(features, table, weights, bias)
+        return gather_conv(features, table, weights.to(features.dtype),
+                           bias)
 
     @staticmethod
     def backward(ctx, dy):
@@ -240,9 +254,10 @@ class SparseConvFunction(torch.autograd.Function):
             if inverse_table is None and table.shape[1] != len(features):
                 raise ValueError("a strided conv's input gradient needs its "
                                  "inverse table")
-            dx = subm_conv_dx(dy, table, weights, inverse_table)
+            dx = subm_conv_dx(dy, table, weights, inverse_table).to(
+                features.dtype)
         if ctx.needs_input_grad[2]:
-            dw = subm_conv_dw(features, table, dy)
+            dw = subm_conv_dw(features.to(dy.dtype), table, dy)
         if ctx.needs_input_grad[3]:
             db = dy.sum(0)
         return dx, None, dw, db, None
@@ -252,15 +267,17 @@ def subm_conv_apply(features: torch.Tensor, table: torch.Tensor,
                     weights: torch.Tensor, bias: torch.Tensor = None,
                     inverse_table: torch.Tensor = None) -> torch.Tensor:
     """Sparse conv over a gather table (submanifold or strided): features
-    (N_in, Cin), table (27, N_out) int32, weights (27, Cin, Cout) ->
-    (N_out, Cout). Kernel K2 on the card, its plain version on the CPU.
-    Differentiable: a strided conv's input gradient needs
-    `inverse_table` (`strided_inverse_table`); a submanifold one reuses
-    `table`. Where nothing needs a gradient (inference under no_grad) K2
-    runs without the autograd Function, which would keep its inputs."""
+    (N_in, Cin) fp32 or bf16, table (27, N_out) int32, weights (27, Cin,
+    Cout) -> (N_out, Cout) fp32. The weights are rounded to the features'
+    type for the product (`SparseConvFunction`). Kernel K2 on the card,
+    its plain version on the CPU. Differentiable: a strided conv's input
+    gradient needs `inverse_table` (`strided_inverse_table`); a
+    submanifold one reuses `table`. Where nothing needs a gradient
+    (inference under no_grad) K2 runs without the autograd Function,
+    which would keep its inputs."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (features, weights, bias)):
         return SparseConvFunction.apply(features, table, weights, bias,
                                         inverse_table)
-    return gather_conv(features, table, weights, bias)
+    return gather_conv(features, table, weights.to(features.dtype), bias)

@@ -8,8 +8,18 @@ weight decay 0.01 on every parameter (optax.adamw decays with no mask),
 eps 1e-8, b2 0.999; the learning rate and b1 follow the one-cycle schedule
 at the count of updates done so far (0 for the first update), as optax's
 `inject_hyperparams` evaluates them; gradients are clipped to a global
-norm of 35 as optax.clip_by_global_norm clips them. Data parallelism and
-the `space` axis are not ported yet (ROADMAP.md, queue 1).
+norm of 35 as optax.clip_by_global_norm clips them.
+
+Data parallelism (the JAX step under `shard_map` over its `data` axis,
+`futuredet_tpu/train/step.py:139-160`): in a `torch.distributed` process
+group each rank runs this step on its own batch; the BatchNorms average
+their statistics over the ranks inside the forward (`parallel/
+collectives.py::pmean`, with gradient), the gradients are averaged in one
+all-reduce before the clip (`average_gradients_`), and the losses that the
+step returns are rank means, as the JAX `pmean`s of grads and losses. The
+same gradients on every rank give the same update, and the averaged
+statistics the same running statistics. The `space` axis is not ported
+(ROADMAP.md, queue 1: spatial sharding).
 
 A two-stage model (`models/two_stage.py`) adds the RoI head's loss and
 trains only `two_stage_trainable_mask`'s parameters, as the JAX
@@ -21,10 +31,13 @@ backward still runs, the `grad_norm` metric is over every gradient
 statistics, the model being in train mode as a whole.
 
 Under a bf16 knob (`compute_dtype`, `middle_sparse_dtype="bfloat16"`,
-`middle_dense_dtype`) the detector's train-mode forward raises, naming
-ROADMAP.md's "bf16 training" (`models/detector.py::refuse_bf16_training`);
-the knobs the JAX package makes exact in training (`window*`, `hybrid`,
-`bf16_packed`) train as fp32, the dense middle forms through autograd.
+`middle_dense_dtype`) the forward runs those parts in bf16 and their
+backward follows the JAX package's dtypes (`models/layers.py`,
+`ops/sparse_conv.py::SparseConvFunction`, `models/middle.py::
+SparseConv.dense`); the head's outputs, the loss, the gradients (fp32
+parameters) and the clip stay fp32, and a two-stage model's RoI head
+stays fp32, as in the JAX package. The knobs the JAX package makes exact
+in training (`window*`, `hybrid`, `bf16_packed`) train as fp32.
 
 A first AdamW step moves every parameter by about lr * sign(g), so two
 runs whose gradients differ by rounding can move a parameter with a
@@ -41,6 +54,7 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..data.targets import build_targets_batch
 from ..models.losses import center_head_loss
+from ..parallel.collectives import average_gradients_, pmean
 from .schedule import one_cycle_lr, one_cycle_momentum
 
 ADAM_B2 = 0.999
@@ -153,7 +167,8 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     bev_map config). `step` is the count of
     updates done before this one. Returns {loss, hm_loss, loc_loss,
     grad_norm}, and roi_cls_loss and roi_reg_loss for a two-stage model,
-    as tensors on the device."""
+    as tensors on the device; in a data-parallel run the losses are the
+    means over the ranks and the gradients those averaged over them."""
     if not model.training:
         raise ValueError("train_step needs the model in train mode "
                          "(model.train()): eval BatchNorm would not learn "
@@ -161,6 +176,8 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     # every gradient, the frozen ones too: the grad_norm metric reads them
     model.zero_grad(set_to_none=True)
     losses = forward_backward(model, batch)
+    average_gradients_(list(model.parameters()))
     grad_norm = apply_update(model, optimizer, step)
-    return {**{k: v.detach() for k, v in losses.items()},
-            "grad_norm": grad_norm}
+    keys = list(losses)
+    means = pmean(*(losses[k].detach() for k in keys))
+    return {**dict(zip(keys, means)), "grad_norm": grad_norm}

@@ -21,6 +21,13 @@ metrics.
 The sparse middle never drops a site; the only budget is the voxelizer's
 `max_voxels_train` per sample, and a sample that reaches it draws a
 warning (the counterpart of the JAX package's capacity check).
+
+Data parallel: in a `torch.distributed` process group
+(`parallel/collectives.py::initialize_multihost`) every rank runs this
+loop on its own batches from the same seeded init; the step averages the
+statistics and gradients over the ranks, so the models stay equal, the
+logged losses are rank means, and rank 0 alone writes checkpoints (every
+rank reads one to resume).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..data.prefetch import prefetch
 from ..models.detector import build_detector, resolve_device
+from ..parallel.collectives import rank
 from .checkpoints import CheckpointManager
 from .step import make_optimizer, train_step
 
@@ -170,6 +178,8 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
     if resume and ckpt and ckpt.latest_step() is not None:
         state.step = ckpt.restore(model, state.optimizer)
         log_fn(f"resumed from step {state.step}")
+    if rank() != 0:
+        ckpt = None                  # rank 0 writes the checkpoints
 
     # preemption notice -> checkpoint at the next step boundary
     preempted: List[int] = []

@@ -1,0 +1,34 @@
+"""Training under the bf16 knobs and data parallelism at world size 1,
+from a fresh process on one NVIDIA GPU: chip_smoke.py's phases 33-34
+alone, after the build, with phase 33's steps timed in turns (fp32, knob,
+knob, fp32).
+
+    python3 scripts/torch_train_bf16_phases.py [ROOT]
+
+ROOT (default: this checkout) is the checkout whose chip_smoke.py and
+futuredet_torch run, e.g. a parent commit unpacked under build/. Prints the
+card and the build's seconds per source, then one JSON line per phase as
+chip_smoke.py prints them."""
+import os
+import sys
+import tempfile
+
+root = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else \
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, root)
+os.chdir(root)
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from futuredet_torch.ops import _build  # noqa: E402
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+card = cs.card_line()
+print(card, _build.build_all(), flush=True)
+os.makedirs(cs.OUT_DIR, exist_ok=True)
+cs.bf16_train_path(dev, card, turns=True)
+with tempfile.TemporaryDirectory() as work:
+    cs.dp_path(dev, card, work)
+print("done", flush=True)

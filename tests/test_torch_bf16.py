@@ -3,8 +3,8 @@ bf16 family (its plain version against the JAX `loop` contraction in
 compute dtype bf16), the bf16 layers and towers (`compute_dtype`), the
 sparse knobs (`middle_sparse_dtype` "bfloat16" and "bf16_packed",
 `middle_gather_algo="window_bf16"` at B = 1 and B = 2) and the dense
-middle stages inside the whole VoxelNet detector, and the refusal to train
-under a bf16 knob.
+middle stages inside the whole VoxelNet detector, and a train step under
+each bf16 knob (held to the JAX step by tests/test_torch_train_bf16_*.py).
 
 The VoxelNet cases run the tiny forecast_n3dtf of
 `tests/test_torch_voxelnet.py` with middle channels (8, 16, 64, 64), so
@@ -403,14 +403,32 @@ def _train_batch(cfg, B=2):
     ("pp_forecast_n3dtf", dict(compute_dtype="bfloat16")),
     ("pp_forecast_n3dtf_two_stage", dict(compute_dtype="bfloat16")),
 ])
-def test_training_under_a_bf16_knob_refuses(name, change):
+def test_training_under_a_bf16_knob_runs(name, change):
+    """A B = 1 train step of every tiny config under each bf16 knob, on
+    one thread: finite losses and grad_norm, fp32 gradients on every
+    trained parameter, and the parameters move (each step is held to the
+    JAX step by tests/test_torch_train_bf16_*.py and phase 33)."""
+    from futuredet_torch.data.synthetic import make_batch
     from futuredet_torch.train.step import make_optimizer, train_step
-    cfg = port_config.tiny_variant(port_config.get_config(name))
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **change))
-    model = build_detector(cfg, device="cpu").train()
-    opt = make_optimizer(cfg, model, 10)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        train_step(model, opt, _train_batch(cfg), 0)
+    cfg = with_knobs(port_config.tiny_variant(port_config.get_config(name)),
+                     change)
+    batch = make_batch(cfg, 1, seed=0, n_objects=4, n_clutter=1000,
+                       clutter_mode="lidar")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = build_detector(cfg, device="cpu", seed=3).train()
+        opt = make_optimizer(cfg, model, 10)
+        before = [p.detach().clone() for p in model.parameters()]
+        metrics = train_step(model, opt, batch, 0)
+    finally:
+        torch.set_num_threads(threads)
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    trained = [p for g in opt.param_groups for p in g["params"]]
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in trained)
+    assert any(not torch.equal(a, p) for a, p in
+               zip(before, model.parameters()))
 
 
 @pytest.mark.parametrize("change", [

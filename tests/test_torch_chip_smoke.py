@@ -605,3 +605,54 @@ def test_serving_phases_rehearse_on_the_cpu(serving_phases_on_the_cpu):
     assert lines[1]["middle_max_abs_err"] <= lines[1]["middle_tol"]
     assert lines[2]["middle_max_abs_err"] > 0
     assert np.isfinite(lines[3]["train_loss"]) and lines[3]["train_k2"] == 0
+
+
+@pytest.fixture
+def bf16_train_phases_on_the_cpu(two_stage_phases_on_the_cpu, monkeypatch):
+    """chip_smoke's bf16 training and data-parallel phases (33-34) on the
+    CPU, on top of the two-stage rehearsal's small configs: K2 counted by
+    route (as the serving rehearsal counts it)."""
+    from futuredet_torch.ops import pallas_gather, sparse_conv
+
+    def counting_k2(f, t, w, b=None):
+        counting_k2.launches += 1
+        counting_k2.launches_by_route[pallas_gather.k2_route(
+            f.shape[1], w.shape[2], f.dtype)] += 1
+        return pallas_gather.gather_conv_plain(f, t, w, b)
+    monkeypatch.setattr(pallas_gather, "gather_conv", counting_k2)
+    monkeypatch.setattr(sparse_conv, "gather_conv", counting_k2)
+    pallas_gather.reset_launches()
+    monkeypatch.setattr(cs, "OVERFIT_STEPS", 3)
+    return two_stage_phases_on_the_cpu
+
+
+def test_bf16_train_and_dp_phases_rehearse_on_the_cpu(
+        bf16_train_phases_on_the_cpu, tmp_path):
+    lines = bf16_train_phases_on_the_cpu
+    dev = torch.device("cpu")
+    out = cs.bf16_train_path(dev, "cpu")
+    vox, pp = cs.VOX_NAME, cs.NAME
+    assert out == {
+        f"{vox}+a_bf16_train": {"k1": 0, "k2": 39, "k2_bf16": 20},
+        f"{vox}+d_dense_bf16_train": {"k1": 0, "k2": 19, "k2_bf16": 0},
+        f"{pp}+pillars_bf16_train": {"k1": 0, "k2": 0, "k2_bf16": 0},
+        "pp_forecast_n3dtf_two_stage+two_stage_bf16_train":
+            {"k1": 1, "k2": 0, "k2_bf16": 0}}
+    assert [ln["phase"] for ln in lines] == ["bf16_train"] * 4
+    a = lines[0]
+    assert a["k2_dx_by_route"]["bf16"] == 0 and a["k2_dx"] == 19
+    assert a["signal_quantities"] and a["card_fp32_breaks"]
+    assert all(ln["card_fp32_breaks"] for ln in lines)
+    assert all(len(ln["repeated_batch_losses"]) == 3 for ln in lines)
+    assert set(lines[3]["train_step_split_ms"]) >= {"decode_nms",
+                                                    "proposal_targets"}
+
+    del lines[:]
+    dp = cs.dp_path(dev, "cpu", str(tmp_path))
+    assert dp == {f"{vox}_dp_train_cli": {"k1": 0, "k2": 78},
+                  f"{vox}_dp_eval_cli": {"k1": 2, "k2": 40}}
+    ln = lines[-1]
+    assert ln["backend"] == "gloo"
+    assert [tuple(g) for g in ln["process_groups"]] == [("gloo", 1, 0)] * 2
+    assert ln["bit_identical"] and ln["plain_steps_bit_identical"]
+    assert ln["batchnorms"] > 10

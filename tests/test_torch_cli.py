@@ -237,12 +237,9 @@ def test_defaults_are_the_jax_clis(cli):
 
 
 @pytest.mark.parametrize("main,extra,item", [
-    (evaluate.main, ["--space", "2"], "DDP"),
-    (evaluate.main, ["--coordinator_address", "localhost:1",
-                     "--num_processes", "2"], "DDP"),
+    (evaluate.main, ["--space", "2"], "spatial sharding"),
     (train.main, ["--profile", "trace"], "long tail"),
-    (train.main, ["--space", "2"], "DDP"),
-    (train.main, ["--num_processes", "4", "--process_id", "1"], "DDP"),
+    (train.main, ["--space", "2"], "spatial sharding"),
 ])
 def test_unported_flags_raise_naming_their_roadmap_item(main, extra, item):
     base = EVAL_ARGS if main is evaluate.main else TRAIN_ARGS

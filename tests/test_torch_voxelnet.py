@@ -231,17 +231,17 @@ def test_extra_conv_fold_matches_jax(jax_run):
                            **got}, strict=True)
 
 
-@pytest.mark.parametrize("change,trains", [
-    (dict(middle="dense"), True), (dict(middle_dense_from_stage=2), True),
-    (dict(middle_gather_algo="window_bf16"), True),
-    (dict(middle_sparse_dtype="bfloat16"), False),
-    (dict(compute_dtype="bfloat16"), False),
-    (dict(middle_dense_from_stage=1, middle_dense_dtype="bfloat16"), False),
-    (dict(middle_sparse_dtype="bf16_packed"), True)])
-def test_unported_voxelnet_options_raise(change, trains):
-    """Every VoxelNet knob builds and infers; training under a bf16 knob
-    raises naming its ROADMAP item, the others train (window_bf16 and
-    bf16_packed as fp32, as the JAX package trains them)."""
+@pytest.mark.parametrize("change", [
+    dict(middle="dense"), dict(middle_dense_from_stage=2),
+    dict(middle_gather_algo="window_bf16"),
+    dict(middle_sparse_dtype="bfloat16"), dict(compute_dtype="bfloat16"),
+    dict(middle_dense_from_stage=1, middle_dense_dtype="bfloat16"),
+    dict(middle_sparse_dtype="bf16_packed")])
+def test_unported_voxelnet_options_raise(change):
+    """Every VoxelNet knob builds, infers and runs a train-mode forward
+    (window_bf16 and bf16_packed as fp32, as the JAX package trains them;
+    the bf16 knobs since training under them is ported,
+    tests/test_torch_train_bf16_*.py): nothing raises."""
     cfg = voxelnet_config(port_config)
     model = build_detector(cfg.replace(model=dataclasses.replace(
         cfg.model, **change)), device="cpu")
@@ -252,13 +252,8 @@ def test_unported_voxelnet_options_raise(change, trains):
     assert all(bool(torch.isfinite(t).all()) for p in preds
                for t in p.values())
     model.train()
-    if trains:
-        with torch.no_grad():
-            assert torch.isfinite(model(pts, valid)[0]["hm"]).all()
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1: bf16 training"):
-            model(pts, valid)
+    with torch.no_grad():
+        assert torch.isfinite(model(pts, valid)[0]["hm"]).all()
     for algo in ("xpack", "loop", "stacked", "window", "hybrid"):
         build_detector(cfg.replace(model=dataclasses.replace(
             cfg.model, middle_gather_algo=algo, middle_map_format="bitmap",
