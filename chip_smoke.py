@@ -294,6 +294,39 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       backward, one flat all-reduce of the gradients) timed at world size
       1. NCCL refuses two ranks on one device: no multi-GPU figure.
 
+  The tools, the profiler and the FLOP count (K1 and K2 are the custom
+  operators torch.ops.futuredet.nms_alive / gather_conv):
+  35. cli.tools export --check of pp_forecast_n3dtf and forecast_n3dtf at
+      full width (the configs' 300,000-point buffers): the .pt2 holds K1
+      (and the VoxelNet's 20 sparse convs, K2) as the operators; loaded,
+      it runs phase 4's uniform scene (padded with invalid rows to the
+      buffer) or phase 8's uniform_blobs scene with phases 2 and 6's
+      seeded weights, under torch's deterministic algorithms: K1 once (K2
+      20) a scene, detections bit-identical to the eager program's. The
+      export's seconds, the artifact's bytes, ms a scene exported against
+      eager in turns (median of 20 after 3).
+  36. cli.train --model forecast_n3dtf --profile DIR: two B = 1 steps of
+      the CLI's synthetic scene (seed TRAIN_SEED); K2 20 + 19 a step; the
+      trace file parses as JSON and names K2's kernels (39 launches a
+      step) and cuDNN's convolutions; device_memory_stats() reports the
+      card's live bytes; the step's ms with the profiler and without it
+      (the same command again).
+  37. model_flops of pp_forecast_n3dtf and forecast_n3dtf at full width
+      on the card (the JAX function's inputs: the buffer's zero points,
+      all valid) must equal analytic_flops (every conv, deconv and linear
+      layer from its shapes, K2's 2 N 27 Cin Cout from its tables); GFLOP
+      a scene, and the analytic GFLOP of phases 5 and 9's scenes over
+      their ms as achieved TFLOP/s (a figure, not a gate).
+  38. tools trajectory on phase 21's train infos, then cli.evaluate
+      --postprocess of pp_forecast_n3dtf on its val infos from phase 21's
+      checkpoint: the prototypes file found, K1 once a sample, the
+      metrics JSON written; tools statistics on the train infos; tools
+      compare of phase 17's and phase 21's pillar checkpoints (most
+      parameters changed) and of one with itself (none); the sorted
+      reader (PillarFeatureNet over point_voxel_map, then scatter_to_bev)
+      on phase 4's scene, card against CPU within 1e-5 of max(1,
+      max|CPU|).
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
@@ -467,6 +500,7 @@ BF16_LOSS_ULPS, BF16_FP32_FLOOR = 2.0 ** -7, 1e-5
 # steps differ (an op without a deterministic kernel): within this many
 # times their distance (seen: 0.74x and 1.52x with no deterministic mode)
 DP_SPREAD = 4.0
+SORTED_READER_RTOL = 1e-5   # phase 38: card vs CPU, sums in another order
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the metrics JSON and CSV the evaluate CLI writes in phases 17-19
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -1018,10 +1052,54 @@ def pillar_path(dev, card):
           "k1_pairs_all": main["pairs_all"], "k1_bytes": main["bytes"],
           "k1_by_case": k1, "warmup": WARMUP, "reps": REPS})
     return {"launches": launches, "k2_launches": k2_launches,
+            "scene_ms": {k: times[k] for k in on_card},
             "max_abs_err": k1_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "dense_ms": k1["dense_cluster_7x1000"]["ms"]}
+
+
+def analytic_flops(model, points, valid):
+    """The flops of one forward, counted without FlopCounterMode: 2 x the
+    multiply-adds of every conv, deconv and linear layer, from its weight
+    shape and its output (a deconv: its input) size, plus each sparse
+    conv's dense contraction 2 N 27 Cin Cout (K2's formula), N from its
+    table. Returns (total, {"conv": ..., "deconv": ..., "linear": ...,
+    "k2": ...})."""
+    from torch import nn
+
+    from futuredet_torch.ops import sparse_conv as sc_mod
+
+    parts = dict.fromkeys(("conv", "deconv", "linear", "k2"), 0)
+
+    def layer(m, inp, out):
+        if isinstance(m, nn.Linear):
+            parts["linear"] += 2 * out.numel() * m.in_features
+        elif isinstance(m, nn.ConvTranspose2d):
+            x = inp[0]
+            parts["deconv"] += (2 * x.shape[0] * math.prod(x.shape[2:])
+                                * m.weight.numel())
+        else:
+            parts["conv"] += 2 * out.numel() * m.weight[0].numel()
+
+    def k2(features, table, weights, bias=None):
+        parts["k2"] += (2 * table.shape[1] * table.shape[0]
+                        * weights.shape[1] * weights.shape[2])
+        return kernel(features, table, weights, bias)
+
+    kernel = sc_mod.gather_conv
+    hooks = [m.register_forward_hook(layer) for m in model.modules()
+             if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d,
+                               nn.ConvTranspose2d))]
+    sc_mod.gather_conv = k2
+    try:
+        with torch.no_grad():
+            model(points, valid)
+    finally:
+        sc_mod.gather_conv = kernel
+        for h in hooks:
+            h.remove()
+    return sum(parts.values()), parts
 
 
 def k2_compare(features, table, weights, bias):
@@ -4115,6 +4193,281 @@ def dp_path(dev, card, work):
             VOX_NAME + "_dp_eval_cli": {"k1": totals[0], "k2": totals[1]}}
 
 
+def export_path(dev, card, work):
+    """Phase 35. Returns the launches of the exported programs' scenes."""
+    import dataclasses
+
+    from futuredet_torch.cli import tools
+    from futuredet_torch.config import get_config
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    launches = {}
+    for name in (NAME, VOX_NAME):
+        out = os.path.join(work, name + ".pt2")
+        t0 = time.perf_counter()
+        with LogCapture() as logs:
+            tools.main(["export", "--model", name, "--check", "--out", out,
+                        "--device", str(dev)])
+        export_s = time.perf_counter() - t0
+        check(any(ln.startswith("roundtrip check ok") for ln in logs.lines),
+              f"{name} export --check: {logs.lines}")
+        loaded = torch.export.load(out)
+        targets = [str(n.target) for n in loaded.graph.nodes
+                   if n.op == "call_function"]
+        want_k2 = 20 if name == VOX_NAME else 0
+        nodes = (targets.count("futuredet.nms_alive.default"),
+                 targets.count("futuredet.gather_conv.default"))
+        check(nodes == (1, want_k2), f"{name}: the exported program holds "
+              f"(K1, K2) operators {nodes}")
+        exported = loaded.module()
+
+        cfg = get_config(name)
+        P = cfg.voxel.max_points
+        if name == NAME:    # phase 4's scene, padded with invalid rows
+            pts, valid = scene_uniform(cfg.replace(voxel=dataclasses.replace(
+                cfg.voxel, max_points=MAX_POINTS)), np.random.default_rng(0))
+            pts = np.concatenate([pts, np.zeros(
+                (1, P - pts.shape[1], 5), np.float32)], 1)
+            valid = np.concatenate([valid, np.zeros(
+                (1, P - valid.shape[1]), bool)], 1)
+        else:               # phase 8's scene
+            pts, valid = scene_blobs(cfg, np.random.default_rng(0))
+        pts = torch.from_numpy(pts).to(dev)
+        valid = torch.from_numpy(valid).to(dev)
+        program = tools.inference_program(cfg,
+                                          build_detector(cfg, dev, seed=0))
+        runs = {}
+        # the pillar reader's scatter-adds take torch's deterministic
+        # kernels, so that two runs of the same ops agree bit for bit
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for route, fn in (("exported", exported), ("eager", program)):
+                k1.launches = k2.launches = 0
+                with torch.no_grad():
+                    runs[route] = fn(pts, valid)
+                torch.cuda.synchronize()
+                runs[route + "_launches"] = (k1.launches, k2.launches)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(runs["exported_launches"] == runs["eager_launches"]
+              == (1, want_k2), f"{name}: (K1, K2) launches exported "
+              f"{runs['exported_launches']}, eager {runs['eager_launches']}")
+        same = [bool(torch.equal(a, b)) for a, b in zip(runs["exported"],
+                                                        runs["eager"])]
+        n_det = int(runs["eager"][3].sum())
+        check(all(same) and n_det > 0, f"{name} exported vs eager: "
+              f"{dict(zip(('boxes', 'scores', 'labels', 'valid'), same))}, "
+              f"{n_det} detections")
+
+        def timed(fn):
+            def run():
+                with torch.no_grad():
+                    return fn(pts, valid)
+            return time_host(run)
+        turns = {"eager": [], "exported": []}
+        for route in ("eager", "exported", "exported", "eager"):
+            turns[route].append(timed(program if route == "eager"
+                                      else exported))
+        emit({"phase": "export", "model": name, "card": card,
+              "export_and_check_s": round(export_s, 3),
+              "artifact_bytes": os.path.getsize(out),
+              "export_log": logs.lines, "points_buffer": P,
+              "points_valid": int(valid.sum()), "detections": n_det,
+              "bit_identical": True,
+              "launches_exported": runs["exported_launches"],
+              "launches_eager": runs["eager_launches"],
+              "ms_per_scene_turns": turns,
+              "eager_ms": statistics.median(turns["eager"]),
+              "exported_ms": statistics.median(turns["exported"])})
+        launches[name + "_exported"] = {"k1": 1, "k2": want_k2}
+    return launches
+
+
+def profile_path(dev, card, work):
+    """Phase 36. Returns the launches of the profiled steps."""
+    import glob
+
+    from futuredet_torch.utils.profiling import device_memory_stats
+
+    trace_dir = os.path.join(work, "profile")
+    runs = {}
+    for name, extra in (("profiled", ["--profile", trace_dir]),
+                        ("unprofiled", [])):
+        argv = ["--model", VOX_NAME, "--device", str(dev), "--synthetic",
+                "1", "--batch_size",
+                "1", "--epochs", "2", "--seed", str(TRAIN_SEED),
+                "--work_dir", os.path.join(work, f"profile_{name}"), *extra]
+        hook = StepCounts()
+        state, logs, secs = run_train_cli(argv, hook)
+        check(state.step == 2, f"{name}: {state.step} steps")
+        runs[name] = {"steps": hook.steps, "cli_s": round(secs, 3)}
+        for st in hook.steps:
+            check((st["k2_forward"], st["k2_dx"], st["k1"]) == (20, 19, 0)
+                  and st["finite"], f"{name} step {st}")
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k2_names = ("narrow_kernel", "wide_kernel", "bf16_kernel")
+    k2_events = [k for k in kernels if any(n in k for n in k2_names)]
+    conv_events = [k for k in kernels if re.search(r"(?i)cudnn|conv", k)
+                   and k not in k2_events]
+    check(len(k2_events) == 2 * 39, f"the trace holds {len(k2_events)} K2 "
+          "launches for 2 steps")
+    check(conv_events, "the trace names no cuDNN convolution")
+    mem = device_memory_stats()
+    check(mem and all(v > 0 for v in mem.values()), f"memory stats {mem}")
+    emit({"phase": "profile", "model": VOX_NAME, "card": card,
+          "trace_bytes": os.path.getsize(files[0]),
+          "kernel_events": len(kernels),
+          "k2_events_per_step": len(k2_events) / 2,
+          "k2_kernel_names": sorted(set(k2_events))[:6],
+          "conv_kernel_names": sorted(set(conv_events))[:6],
+          "device_memory_stats": mem,
+          "step_ms_profiled": [st["step_ms"]
+                               for st in runs["profiled"]["steps"]],
+          "step_ms_unprofiled": [st["step_ms"]
+                                 for st in runs["unprofiled"]["steps"]],
+          "cli_s": {k: v["cli_s"] for k, v in runs.items()}})
+    return {VOX_NAME + "_profiled_train": {"k1": 0, "k2": 2 * 39}}
+
+
+def flops_path(dev, card, scene_ms):
+    """Phase 37: model_flops against the analytic count, at full width;
+    the timed scenes' analytic flops over their ms."""
+    import dataclasses
+
+    from futuredet_torch.config import get_config
+    from futuredet_torch.models.detector import build_detector
+    from futuredet_torch.utils.flops import model_flops
+
+    for name, scene in ((NAME, "uniform"), (VOX_NAME, "uniform_blobs")):
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        got = model_flops(cfg, device=dev)
+        count_s = time.perf_counter() - t0
+        P = cfg.voxel.max_points
+        model = build_detector(cfg, dev, seed=0)
+        want, parts = analytic_flops(
+            model, torch.zeros(1, P, 5, device=dev),
+            torch.ones(1, P, dtype=torch.bool, device=dev))
+        check(got["flops"] == want, f"{name}: model_flops {got['flops']} "
+              f"!= analytic {want} ({parts})")
+        if name == NAME:       # phase 5's uniform scene in its buffer
+            pts, valid = scene_uniform(cfg.replace(voxel=dataclasses.replace(
+                cfg.voxel, max_points=MAX_POINTS)), np.random.default_rng(0))
+        else:                  # phase 9's uniform_blobs scene
+            pts, valid = scene_blobs(cfg, np.random.default_rng(0))
+        timed, timed_parts = analytic_flops(
+            model, torch.from_numpy(pts).to(dev),
+            torch.from_numpy(valid).to(dev))
+        ms = scene_ms[name][scene]
+        emit({"phase": "flops", "model": name, "card": card,
+              "gflop_per_scene": got["flops"] / 1e9,
+              "analytic_parts_gflop": {k: v / 1e9 for k, v in parts.items()},
+              "bytes_accessed_unfused": got["bytes_accessed"],
+              "count_s": round(count_s, 3), "scene": scene,
+              "scene_gflop": timed / 1e9,
+              "scene_parts_gflop": {k: v / 1e9
+                                    for k, v in timed_parts.items()},
+              "scene_ms": ms,
+              "achieved_tflop_per_s": timed / (ms * 1e-3) / 1e12,
+              "note": "the timed scene's analytic flops over its ms: a "
+                      "figure, not a gate"})
+
+
+def tools_path(dev, card, work, pp_dir):
+    """Phase 38. Returns the launches of the --postprocess evaluation."""
+    import copy
+    import dataclasses
+    import glob
+
+    from futuredet_torch.cli import tools
+    from futuredet_torch.config import get_config
+    from futuredet_torch.models.readers import (PillarFeatureNet,
+                                                scatter_to_bev)
+    from futuredet_torch.ops.voxelize import point_voxel_map
+
+    root = os.path.join(work, "nuscenes")
+    train_pkl, = glob.glob(os.path.join(root, "infos_train_*.pkl"))
+    val_pkl, = glob.glob(os.path.join(root, "infos_val_*.pkl"))
+    nusc_ckpt = os.path.join(work, f"nusc_{NAME}")
+    post_dir = os.path.join(work, "postprocess")
+    os.makedirs(post_dir)
+    here = os.getcwd()
+    os.chdir(post_dir)       # evaluate reads ./car_trajectory.pkl
+    try:
+        protos = tools.main(["trajectory", "--info_path", train_pkl])
+        check(protos and os.path.exists("car_trajectory.pkl"),
+              f"{len(protos)} prototypes")
+        summary, per_call, total, logs, secs = run_evaluate(eval_args(
+            dev, NAME, f"metrics_{NAME}_postprocess", "--info_path",
+            val_pkl, "--checkpoint_dir", nusc_ckpt, "--postprocess"))
+    finally:
+        os.chdir(here)
+    check(not any("not found" in ln for ln in logs),
+          "the prototypes file was not found")
+    check(per_call == [(1, 0)] * NUSC_KEYFRAMES,
+          f"--postprocess: (K1, K2) launches {per_call}")
+    check_summary(summary, "--postprocess")
+    check(os.path.exists(metrics_path(f"metrics_{NAME}_postprocess")),
+          "no metrics JSON")
+    counts = tools.main(["statistics", "--info_path", train_pkl])
+    check(sum(counts.values()) > 0, f"statistics {counts}")
+    changed, same = tools.main(["compare", pp_dir, nusc_ckpt])
+    check(len(changed) > len(same), f"compare: {len(changed)} changed, "
+          f"{len(same)} identical")
+    changed_self, same_self = tools.main(["compare", pp_dir, pp_dir])
+    check(not changed_self and len(same_self) == len(changed) + len(same),
+          "compare of a checkpoint with itself")
+
+    # the sorted reader on phase 4's scene, card against CPU
+    cfg = get_config(NAME)
+    v = cfg.voxel
+    pts, valid = scene_uniform(cfg.replace(voxel=dataclasses.replace(
+        v, max_points=MAX_POINTS)), np.random.default_rng(0))
+    H, W = v.grid_size[1], v.grid_size[0]
+    rng = np.random.default_rng(5)
+    cpu = PillarFeatureNet(5, tuple(cfg.model.pillar_filters),
+                           v.voxel_size[:2], v.pc_range).eval()
+    for layer in cpu.pfn_layers:
+        layer.norm.running_mean.copy_(torch.from_numpy(rng.normal(
+            0, 0.2, layer.norm.running_mean.shape).astype(np.float32)))
+        layer.norm.running_var.copy_(torch.from_numpy(rng.uniform(
+            0.5, 1.5, layer.norm.running_var.shape).astype(np.float32)))
+    card_mod = copy.deepcopy(cpu).to(dev)
+    canvases = {}
+    for where, mod, d in (("card", card_mod, dev), ("cpu", cpu, "cpu")):
+        m = point_voxel_map(torch.from_numpy(pts).to(d),
+                            torch.from_numpy(valid).to(d), v.pc_range,
+                            v.voxel_size, grid_size=v.grid_size,
+                            max_voxels=v.max_voxels_eval,
+                            max_points=v.max_points_per_voxel)
+        with torch.no_grad():
+            canvases[where] = (scatter_to_bev(mod(m), m.coords, (H, W))
+                               .cpu(), len(m.first))
+    (gc, n_card), (cc, n_cpu) = canvases["card"], canvases["cpu"]
+    err = float((gc - cc).abs().max())
+    tol = SORTED_READER_RTOL * max(1.0, float(cc.abs().max()))
+    check(n_card == n_cpu and err <= tol,
+          f"sorted reader card vs CPU: {err} > {tol} ({n_card} vs {n_cpu} "
+          "pillars)")
+    emit({"phase": "tools", "card": card, "prototypes": len(protos),
+          "postprocess_launches_per_sample": per_call,
+          "postprocess_eval_s": round(secs, 3),
+          "car": headline(summary, "car") if "car" in
+          summary["mean_dist_aps"] else None,
+          "statistics": counts, "compare_changed": len(changed),
+          "compare_identical": same,
+          "compare_identical_self": len(same_self),
+          "sorted_reader_pillars": n_card,
+          "sorted_reader_max_abs_err": err, "sorted_reader_tol": tol})
+    return {NAME + "_postprocess_eval": {"k1": total[0], "k2": total[1]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4175,6 +4528,11 @@ def main() -> int:
         dense = dense_middle_path(dev, card)
         bf16_train = bf16_train_path(dev, card)
         dp = dp_path(dev, card, work)
+        exported = export_path(dev, card, work)
+        profiled = profile_path(dev, card, work)
+        flops_path(dev, card, {NAME: k1["scene_ms"],
+                               VOX_NAME: vox["scene_ms"]})
+        post = tools_path(dev, card, work, pp_dir)
 
     evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta,
              **nusc, **modes_cli, **two_cli, **serving["paths"], **dense,
@@ -4183,7 +4541,7 @@ def main() -> int:
                                          + v["k2_dx"]}
                 for n, v in modes_train.items()},
              **{n: {"k1": v["k1"], "k2": v["k2"]} for n, v in two.items()},
-             **bf16_train, **dp,
+             **bf16_train, **dp, **exported, **profiled, **post,
              **{f"{n}_train": {"k1": v["k1"], "k2": v["k2_forward"]
                                + v["k2_dx"]}
                 for n, v in two_train.items()}}

@@ -41,12 +41,14 @@ size. `--batch_size` is per rank:
   python -m futuredet_torch.cli.train --model forecast_n3dtf --info_path P \
       --coordinator_address 10.0.0.1:29500 --num_processes 8 --process_id R
 
-The profiler and spatial sharding (`--space > 1`) raise, naming their
-ROADMAP.md items.
+`--profile DIR` wraps the training in a `torch.profiler` trace of the
+host and the card (`utils/profiling.py::trace`), written into DIR.
+Spatial sharding (`--space > 1`) raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -107,7 +109,9 @@ def parse_args(argv=None):
                    help="shrunken geometry for smoke tests")
     p.add_argument("--debug", action="store_true",
                    help="accepted as the JAX CLI accepts it; reads nothing")
-    p.add_argument("--profile", default=None, help="trace dir (not ported)")
+    p.add_argument("--profile", default=None,
+                   help="capture a torch.profiler trace (host and card) to "
+                        "this log dir")
     p.add_argument("--tensorboard", action="store_true",
                    help="log scalars to {work_dir}/tb (ref torchie "
                         "TensorboardLoggerHook)")
@@ -120,10 +124,6 @@ def parse_args(argv=None):
 def refuse_unported(args, cfg) -> None:
     """Flags whose paths the port does not have yet raise, naming their
     ROADMAP.md item."""
-    if args.profile:
-        raise NotImplementedError(
-            "--profile: utils/profiling.py is not ported yet (ROADMAP.md, "
-            "queue 1: long tail)")
     if args.space > 1:
         raise NotImplementedError(SPATIAL_SHARDING)
 
@@ -269,6 +269,7 @@ def _train(args, cfg, dev, n_data: int):
     from ..data.synthetic import make_batch
     from ..parallel.collectives import rank
     from ..train.trainer import TensorBoardHook, train
+    from ..utils.profiling import trace
 
     cfg = train_config(cfg, args, n_data)
     work_dir = args.work_dir or os.path.abspath(
@@ -297,9 +298,12 @@ def _train(args, cfg, dev, n_data: int):
                                      interval=cfg.train.log_interval))
     init_transform = (first_stage_graft(args, dev)
                       if args.first_stage_checkpoint else None)
-    state = train(cfg, batches, steps_per_epoch=steps_per_epoch,
-                  work_dir=work_dir, resume=args.resume_from, val_fn=val_fn,
-                  hooks=hooks, device=dev, init_transform=init_transform)
+    with (trace(args.profile) if args.profile
+          else contextlib.nullcontext()):
+        state = train(cfg, batches, steps_per_epoch=steps_per_epoch,
+                      work_dir=work_dir, resume=args.resume_from,
+                      val_fn=val_fn, hooks=hooks, device=dev,
+                      init_transform=init_transform)
     log.info("training done at step %d; checkpoints in %s", state.step,
              work_dir)
     return state

@@ -2,8 +2,9 @@
 host numpy geometry of the data pipeline.
 
 Port of `futuredet_tpu/core/boxes.py` (reference
-`det3d/core/bbox/box_np_ops.py`): `limit_period` (ref :360-361) on torch
-tensors; `rotation_2d`, `center_to_corner_box2d` (ref :207-285),
+`det3d/core/bbox/box_np_ops.py`): `limit_period` (ref :360-361),
+`box_area_bev`, `yaw_to_nusc` and `boxes_to_global` on torch tensors;
+`rotation_2d`, `center_to_corner_box2d` (ref :207-285),
 `box_collision_test` (the GT-AUG collision test of the reference's numba
 `det3d/core/sampler/preprocess.py:882-967`), `points_in_rbbox` (ref :641+,
 as a frame transform) and `filter_boxes_outside_range` (ref
@@ -136,3 +137,36 @@ def filter_boxes_outside_range(boxes, bv_range) -> np.ndarray:
               & (corners[..., 1] >= bv_range[1])
               & (corners[..., 1] <= bv_range[3]))
     return np.any(inside, axis=1)
+
+
+def box_area_bev(boxes: torch.Tensor) -> torch.Tensor:
+    """boxes (N, >=5) [x, y, (z), w, l, ...] -> (N,) BEV area w * l, with
+    [..., 3] = w and [..., 4] = l."""
+    return boxes[:, 3] * boxes[:, 4]
+
+
+# ---------------------------------------------------------------------------
+# Coordinate transforms between the decode output and the nuScenes global
+# frame, on tensors.
+# ---------------------------------------------------------------------------
+
+def yaw_to_nusc(yaw: torch.Tensor) -> torch.Tensor:
+    """Invert the stored-yaw convention: stored = -nusc - pi/2 (ref
+    nusc_common:531, applied again on the way out at nusc_common.py:172)."""
+    return -yaw - math.pi / 2
+
+
+def boxes_to_global(boxes_xyz: torch.Tensor, yaw: torch.Tensor,
+                    vel: torch.Tensor, lidar2global_rot: torch.Tensor,
+                    lidar2global_trans: torch.Tensor):
+    """Decoded lidar-frame boxes -> the global frame: (xyz (N, 3), yaw
+    (N,), vel (N, 2)).
+
+    lidar2global_rot: (3, 3) rotation composed of calibrated_sensor and
+    ego_pose (ref: _lidar_nusc_box_to_global, nusc_common.py:192-214);
+    the yaw turns by the rotation's heading about z."""
+    xyz = boxes_xyz @ lidar2global_rot.T + lidar2global_trans
+    head = torch.atan2(lidar2global_rot[1, 0], lidar2global_rot[0, 0])
+    vel3 = torch.cat([vel, torch.zeros_like(vel[:, :1])], dim=1)
+    vel_g = vel3 @ lidar2global_rot.T
+    return xyz, yaw + head, vel_g[:, :2]

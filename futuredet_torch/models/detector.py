@@ -128,7 +128,7 @@ class VoxelNetDetector(nn.Module):
         rpn = dict(layer_nums=r.layer_nums, ds_strides=r.ds_strides,
                    ds_filters=r.ds_filters, us_strides=r.us_strides,
                    us_filters=r.us_filters)
-        self.num_voxels: List[int] = []
+        self._num_voxels = None
         if m.middle == "dense":
             # futuredet_tpu/models/detector.py:229-280: no compute_dtype
             self.voxel_embed = nn.Linear(m.num_input_features, DENSE_EMBED)
@@ -187,8 +187,15 @@ class VoxelNetDetector(nn.Module):
                              max_voxels=(v.max_voxels_train if self.training
                                          else v.max_voxels_eval),
                              max_points=v.max_points_per_voxel)
-        self.num_voxels = vm.num_voxels.tolist()
+        if not torch.compiler.is_exporting():   # a program keeps no state
+            self._num_voxels = vm.num_voxels
         return run_means(vm), vm
+
+    @property
+    def num_voxels(self) -> List[int]:
+        """The voxels per sample of the last forward ([] before one),
+        copied to the host when read rather than in the forward."""
+        return [] if self._num_voxels is None else self._num_voxels.tolist()
 
     def dense_bev(self, feats: torch.Tensor, vm: PointVoxelMap,
                   batch_size: int) -> torch.Tensor:

@@ -299,7 +299,7 @@ class SparseMiddleEncoder(nn.Module):
             for block in self.conv1:
                 x = block(x, table, grid, B,
                           self.conv_form(algo, 0, self.channels[0]))
-            counts = [len(grid.ids)]
+            counts = [grid.ids.shape[0]]
         for s in range(1, 4):
             down, bn, _relu, *blocks = getattr(self, f"conv{s + 1}")
             pads = stage_pads(s, dims)
@@ -328,7 +328,7 @@ class SparseMiddleEncoder(nn.Module):
             for block in blocks:
                 x = block(x, table, grid, B,
                           self.conv_form(algo, s, self.channels[s]))
-            counts.append(len(grid.ids))
+            counts.append(grid.ids.shape[0])
         self.site_counts = counts
 
         # z-crush input (ref extra_conv :140-146 and .dense() :165-168):

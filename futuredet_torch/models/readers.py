@@ -1,7 +1,8 @@
 """Pillar feature reader — point-major, sortless.
 
 Port of `futuredet_tpu/models/readers.py` (`MaskedBatchNorm`,
-`PillarFeatureNetDirect`): points are decorated with the cluster offset (from
+`PillarFeatureNetDirect`, and the sorted reader `PillarFeatureNet` with
+`scatter_to_bev`): points are decorated with the cluster offset (from
 the pillar mean over every in-range point) and the pillar-centre offset,
 go through Linear+BN+ReLU, and are max-pooled straight into the full
 (B*H*W, C) canvas, so no sort and no pillar budget is needed. The reference
@@ -12,6 +13,12 @@ Segment sums become `index_add_`; segment maxima become `scatter_reduce_`
 gradient splits evenly among tied points, as `jax.ops.segment_max`'s does
 (ties are common: ReLU zeros, and points at the phantom floor).
 `MaskedBatchNorm` also serves the sparse middle encoder.
+
+`PillarFeatureNet` is the sorted, point-major PFN over a
+`ops/voxelize.py::PointVoxelMap` (each kept pillar's first `max_points`
+points), pooled into one row per kept pillar, and `scatter_to_bev` puts
+such rows on the BEV canvas. As in the JAX package, the detector builds
+only the direct reader; the sorted one is for callers that voxelize first.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..ops.voxelize import PointVoxelMap
 from ..parallel.collectives import pmean
 from .layers import BN_EPS, BN_MOMENTUM
 
@@ -257,3 +265,87 @@ class PillarFeatureNetDirect(nn.Module):
                     phantom = torch.cat(
                         [ph.expand(n_seg, ph.shape[-1]), pooled], -1)
         return pooled[:B * H * W].reshape(B, H, W, -1)
+
+
+class PillarFeatureNet(nn.Module):
+    """Point-major PFN over sorted pillars (`futuredet_tpu/models/readers.py
+    ::PillarFeatureNet`, ref `pillar_encoder.py:59-153`): the points of a
+    `PointVoxelMap` that its pillars keep are decorated with the cluster
+    offset (the point minus the mean of its pillar's kept points) and the
+    pillar-centre offset, go through Linear + MaskedBatchNorm + ReLU, and
+    are max-pooled per pillar (an empty maximum gives 0). A multi-layer
+    `num_filters` concatenates each point's features with its pillar's
+    maximum before the next layer. In training the BatchNorm pools its
+    statistics over every kept point of the map. The state_dict keys are
+    `PillarFeatureNetDirect`'s, so `flax_to_state_dict`'s
+    `reader.pfn_layers.*` rows serve both."""
+
+    def __init__(self, num_input_features: int = 5,
+                 num_filters: Tuple[int, ...] = (64,),
+                 voxel_size: Tuple[float, float] = (0.2, 0.2),
+                 pc_range: Tuple[float, ...] = (-54.0, -54.0, -5.0,
+                                                54.0, 54.0, 3.0)):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.pc_range = tuple(pc_range)
+        layers = []
+        cin = num_input_features + 5
+        for i, ch in enumerate(num_filters):
+            last = i == len(num_filters) - 1
+            units = ch if last else ch // 2     # ref PFNLayer:29-31
+            layers.append(PFNLayer(cin, units))
+            cin = 2 * units
+        self.pfn_layers = nn.ModuleList(layers)
+
+    def forward(self, m: PointVoxelMap) -> torch.Tensor:
+        """m: the map of `ops/voxelize.py::point_voxel_map` -> (N, C), one
+        row per kept pillar, in the map's order."""
+        pts = m.points
+        N = len(m.first)
+        dev = pts.device
+        # each sorted point's pillar: the last run head at or before it,
+        # kept when it lies within that pillar's first num_points points
+        pos = torch.arange(len(pts), device=dev)
+        run = torch.searchsorted(m.first, pos, right=True) - 1
+        runc = run.clamp(0, max(N - 1, 0))
+        valid = (run >= 0) & (pos - m.first[runc] < m.num_points[runc]) \
+            if N else torch.zeros(len(pts), dtype=torch.bool, device=dev)
+        slot = torch.where(valid, run, torch.full_like(run, N))
+        w = valid.to(pts.dtype)[:, None]
+
+        sums = pts.new_zeros((N + 1, 3)).index_add_(0, slot, pts[:, :3] * w)
+        cnt = torch.clamp_min(m.num_points, 1).to(pts.dtype)
+        means = torch.cat([sums[:N] / cnt[:, None], pts.new_zeros((1, 3))])
+        f_cluster = pts[:, :3] - means[slot]
+
+        # coords are zyx: x = c[2], y = c[1]
+        coords = torch.cat([m.coords, m.coords.new_zeros((1, 3))])[slot]
+        vx, vy = self.voxel_size
+        cx = coords[:, 2].to(pts.dtype) * vx + (vx / 2 + self.pc_range[0])
+        cy = coords[:, 1].to(pts.dtype) * vy + (vy / 2 + self.pc_range[1])
+        f_center = torch.stack([pts[:, 0] - cx, pts[:, 1] - cy], -1)
+
+        x = torch.cat([pts, f_cluster, f_center], -1) * w
+        for i, layer in enumerate(self.pfn_layers):
+            x, _ = layer(x, valid)
+            pooled = _segment_max(
+                torch.where(valid[:, None], x,
+                            x.new_tensor(float("-inf"))), slot, N + 1)
+            if i < len(self.pfn_layers) - 1:
+                x = torch.cat([x, pooled[slot]], -1)
+        return pooled[:N]
+
+
+def scatter_to_bev(features: torch.Tensor, coords: torch.Tensor,
+                   grid_hw: Tuple[int, int]) -> torch.Tensor:
+    """Scatter (V, C) pillar/voxel features into an (H, W, C) BEV canvas
+    by index y * W + x (ref PointPillarsScatter, pillar_encoder.py:157-209);
+    rows whose coords (zyx) hold -1 go to a trash row."""
+    H, W = grid_hw
+    y, x = coords[:, 1].long(), coords[:, 2].long()
+    ok = (y >= 0) & (x >= 0)
+    idx = torch.where(ok, y * W + x, torch.full_like(y, H * W))
+    canvas = features.new_zeros((H * W + 1, features.shape[-1]))
+    canvas[idx] = torch.where(ok[:, None], features,
+                              torch.zeros_like(features))
+    return canvas[:H * W].reshape(H, W, features.shape[-1])

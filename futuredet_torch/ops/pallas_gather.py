@@ -31,12 +31,26 @@ in fp32, an fp32 output. Its plain version gathers the bf16 rows and
 multiplies them in fp32: a bf16 x bf16 product is exact in fp32, so the
 two differ only in the order of the sums. The C side picks by the same
 rule and refuses, through its return code, a shape that no family takes.
+
+The conv is the custom operator `torch.ops.futuredet.gather_conv`
+(`torch.library`): its CUDA implementation is the kernel's launch (all
+three families, routed by `k2_route`), its CPU implementation
+`gather_conv_plain`, and its fake implementation gives the (N, Cout)
+output, so `torch.export` keeps K2 as one node of the program. Its flop
+formula for `torch.utils.flop_counter.FlopCounterMode` is the dense
+contraction, 2 N 27 Cin Cout, as XLA counts the JAX middle's gathered
+product. `gather_conv` checks its inputs and calls the operator; the
+operator has no autograd formula (`ops/sparse_conv.py::SparseConvFunction`
+carries the gradient).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -118,23 +132,15 @@ def _check(features, table, weights, bias) -> None:
         raise ValueError(f"inputs lie on different devices: {devs}")
 
 
-def gather_conv(features: torch.Tensor, table: torch.Tensor,
-                weights: torch.Tensor, bias: torch.Tensor = None
-                ) -> torch.Tensor:
-    """K2: features (V, Cin) f32 or bf16, table (27, N) int32, weights
-    (27, Cin, Cout) of the features' type, bias (Cout,) f32 or None ->
-    (N, Cout) f32.
+def _gather_conv_cpu(features: Tensor, table: Tensor, weights: Tensor,
+                     bias: Optional[Tensor]) -> Tensor:
+    # looks the plain version up at each call, so that a rehearsal on the
+    # CPU can count the operator's calls, a loaded program's among them
+    return gather_conv_plain(features, table, weights, bias)
 
-    A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
-    `gather_conv_plain`. `gather_conv.launches` counts kernel launches,
-    `gather_conv.launches_by_route` each family's. The kernel treats any
-    entry outside [0, V) as absent.
-    """
-    _check(features, table, weights, bias)
-    if features.device.type == "cpu":
-        return gather_conv_plain(features, table, weights, bias)
-    if features.device.type != "cuda":
-        raise ValueError(f"unsupported device {features.device}")
+
+def _gather_conv_cuda(features: Tensor, table: Tensor, weights: Tensor,
+                      bias: Optional[Tensor]) -> Tensor:
     V, cin = features.shape
     N, cout = table.shape[1], weights.shape[2]
     route = k2_route(cin, cout, features.dtype)   # raises if none takes it
@@ -165,6 +171,59 @@ def gather_conv(features: torch.Tensor, table: torch.Tensor,
     gather_conv.launches += 1
     gather_conv.launches_by_route[route] += 1
     return out
+
+
+def _gather_conv_fake(features: Tensor, table: Tensor, weights: Tensor,
+                      bias: Optional[Tensor]) -> Tensor:
+    # fp32 out for fp32 and bf16 inputs; the CPU's plain version keeps
+    # float64
+    dtype = (torch.float64 if features.dtype == torch.float64
+             else torch.float32)
+    return features.new_empty((table.shape[1], weights.shape[2]),
+                              dtype=dtype)
+
+
+# the operator: the low-level registration keeps the dispatcher's cost to
+# a few microseconds a call (`torch.library.custom_op` wraps each call in
+# Python; scripts/torch_dispatch_cost.py)
+_LIB = torch.library.Library("futuredet", "FRAGMENT")
+_LIB.define("gather_conv(Tensor features, Tensor table, Tensor weights, "
+            "Tensor? bias) -> Tensor")
+_LIB.impl("gather_conv", _gather_conv_cpu, "CPU")
+_LIB.impl("gather_conv", _gather_conv_cuda, "CUDA")
+torch.library.register_fake("futuredet::gather_conv", _gather_conv_fake,
+                            lib=_LIB)
+gather_conv_op = torch.ops.futuredet.gather_conv.default
+
+
+@register_flop_formula(torch.ops.futuredet.gather_conv)
+def _gather_conv_flops(features_shape, table_shape, weights_shape,
+                       bias_shape=None, *args, out_shape=None, **kwargs
+                       ) -> int:
+    """The dense contraction over every tap, absent neighbours included."""
+    k, cin, cout = weights_shape
+    return 2 * table_shape[1] * k * cin * cout
+
+
+def gather_conv(features: torch.Tensor, table: torch.Tensor,
+                weights: torch.Tensor, bias: torch.Tensor = None
+                ) -> torch.Tensor:
+    """K2: features (V, Cin) f32 or bf16, table (27, N) int32, weights
+    (27, Cin, Cout) of the features' type, bias (Cout,) f32 or None ->
+    (N, Cout) f32, through `torch.ops.futuredet.gather_conv`.
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
+    `gather_conv_plain`. `gather_conv.launches` counts kernel launches,
+    `gather_conv.launches_by_route` each family's. The kernel treats any
+    entry outside [0, V) as absent.
+    """
+    _check(features, table, weights, bias)
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {features.device}")
+    if features.device.type == "cuda":
+        # checked here too, so that tracing refuses what the kernel would
+        k2_route(features.shape[1], weights.shape[2], features.dtype)
+    return gather_conv_op(features, table, weights, bias)
 
 
 def reset_launches() -> None:

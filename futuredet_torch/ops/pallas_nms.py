@@ -22,12 +22,20 @@ The kernel skips the full test of a pair whose centres lie farther apart
 than the sum of the two boxes' reaches (for a threshold >= 0 only); such a
 pair's IoU is exactly 0. `cull_skips` is the same predicate in PyTorch, with
 the kernel's constants, for the tests and `chip_smoke.py`; no path calls it.
+
+The survivor mask is the custom operator `torch.ops.futuredet.nms_alive`
+(`torch.library`): its CUDA implementation is the kernel's launch, its CPU
+implementation `nms_alive_plain`, and its fake implementation gives the
+(G, N) bool shape, so `torch.export` keeps K1 as one node of the program
+and a loaded program launches the kernel. `rotate_nms_alive` checks its
+inputs and calls the operator.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch import Tensor
 
 from . import _build
 from .rotated_iou import _CLIP_EPS, pairwise_iou_bev
@@ -122,13 +130,46 @@ def launch_with_mask(nms_boxes, valid, iou_threshold):
     return alive, mask
 
 
+def _nms_alive_cpu(nms_boxes: Tensor, valid: Tensor,
+                   iou_threshold: float) -> Tensor:
+    # looks the plain version up at each call, so that a rehearsal on the
+    # CPU can count the operator's calls, a loaded program's among them
+    return nms_alive_plain(nms_boxes, valid, iou_threshold)
+
+
+def _nms_alive_cuda(nms_boxes: Tensor, valid: Tensor,
+                    iou_threshold: float) -> Tensor:
+    if not (nms_boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("nms_boxes and valid must be contiguous")
+    return launch_with_mask(nms_boxes, valid, iou_threshold)[0]
+
+
+def _nms_alive_fake(nms_boxes: Tensor, valid: Tensor,
+                    iou_threshold: float) -> Tensor:
+    return torch.empty_like(valid, memory_format=torch.contiguous_format)
+
+
+# the operator: the low-level registration keeps the dispatcher's cost to
+# a few microseconds a call (`torch.library.custom_op` wraps each call in
+# Python; scripts/torch_dispatch_cost.py)
+_LIB = torch.library.Library("futuredet", "FRAGMENT")
+_LIB.define("nms_alive(Tensor nms_boxes, Tensor valid, float iou_threshold)"
+            " -> Tensor")
+_LIB.impl("nms_alive", _nms_alive_cpu, "CPU")
+_LIB.impl("nms_alive", _nms_alive_cuda, "CUDA")
+torch.library.register_fake("futuredet::nms_alive", _nms_alive_fake,
+                            lib=_LIB)
+nms_alive_op = torch.ops.futuredet.nms_alive.default
+
+
 def rotate_nms_alive(nms_boxes: torch.Tensor, valid: torch.Tensor,
                      iou_threshold: float) -> torch.Tensor:
     """K1: (G, N, 5) f32 contiguous, (G, N) bool -> (G, N) bool survivors,
-    N <= MAX_BOXES.
+    N <= MAX_BOXES, through `torch.ops.futuredet.nms_alive`.
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
     `nms_alive_plain`. `rotate_nms_alive.launches` counts kernel launches.
+    The mask has no gradient: the boxes enter it detached.
     """
     if nms_boxes.dim() != 3 or nms_boxes.shape[-1] != 5:
         raise ValueError(f"nms_boxes must be (G, N, 5), got "
@@ -140,13 +181,9 @@ def rotate_nms_alive(nms_boxes: torch.Tensor, valid: torch.Tensor,
     if valid.device != nms_boxes.device:
         raise ValueError("nms_boxes and valid lie on different devices")
     _check_size(nms_boxes.shape[1])
-    if nms_boxes.device.type == "cpu":
-        return nms_alive_plain(nms_boxes, valid, iou_threshold)
-    if nms_boxes.device.type != "cuda":
+    if nms_boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {nms_boxes.device}")
-    if not (nms_boxes.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("nms_boxes and valid must be contiguous")
-    return launch_with_mask(nms_boxes, valid, iou_threshold)[0]
+    return nms_alive_op(nms_boxes.detach(), valid, float(iou_threshold))
 
 
 rotate_nms_alive.launches = 0

@@ -57,7 +57,7 @@ def make_grid(coords: torch.Tensor, dims, batch: torch.Tensor = None
     index (default 0) -> (sorted SparseGrid, the sorting permutation)."""
     coords = coords.to(torch.int64)
     if batch is None:
-        batch = torch.zeros(len(coords), dtype=torch.int64,
+        batch = torch.zeros(coords.shape[0], dtype=torch.int64,
                             device=coords.device)
     ids = batch.to(torch.int64) * math.prod(dims) + linear_ids(coords, dims)
     ids, order = torch.sort(ids)
@@ -75,14 +75,13 @@ def _lookup(grid: SparseGrid, batch: torch.Tensor, q: torch.Tensor,
             dims) -> torch.Tensor:
     """Index into `grid` of the site at coords q (..., 3) of sample
     `batch` (...), or N where q lies outside `dims` or holds no site."""
-    N = len(grid.ids)
     inb = ((q >= 0) & (q < torch.tensor(dims, device=q.device))).all(-1)
     key = batch * math.prod(dims) + linear_ids(q, dims)
     pos = torch.searchsorted(grid.ids, key)
-    if N == 0:
-        return torch.zeros(key.shape, dtype=torch.int32, device=q.device)
-    found = inb & (grid.ids[pos.clamp_max(N - 1)] == key)
-    return torch.where(found, pos, N).to(torch.int32)
+    # position N reads a sentinel that no key of the grid equals
+    ids = torch.cat([grid.ids, grid.ids.new_full((1,), -1)])
+    found = inb & (ids[pos] == key)
+    return torch.where(found, pos, grid.ids.shape[0]).to(torch.int32)
 
 
 def neighbor_table(grid: SparseGrid, dims, kernel: int = 3) -> torch.Tensor:

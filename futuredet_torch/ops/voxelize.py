@@ -50,6 +50,7 @@ class PointVoxelMap(NamedTuple):
     coords: torch.Tensor      # (N, 3) int32 zyx
     batch: torch.Tensor       # (N,) int64 sample index
     num_voxels: torch.Tensor  # (B,) int64 kept voxels per sample
+    max_points: int           # the cap of num_points
 
 
 def point_voxel_map(points: torch.Tensor, points_valid: torch.Tensor,
@@ -77,15 +78,18 @@ def point_voxel_map(points: torch.Tensor, points_valid: torch.Tensor,
 
     head = skey < sentinel
     head[1:] &= skey[1:] != skey[:-1]
+    # the number of voxels stays on the card (no host sync), so that
+    # torch.export traces it as an unbacked size
     first_all = torch.nonzero(head).squeeze(1)                # every voxel
-    n_ok = int((skey < sentinel).sum())
-    run_len = torch.diff(first_all, append=first_all.new_tensor([n_ok]))
+    n_ok = (skey < sentinel).sum().view(1)
+    run_len = torch.diff(first_all, append=n_ok)
     vkey = skey[first_all]
     vb = vkey // total
     # the budget is per sample: keep each sample's lowest max_voxels ids
-    counts = torch.bincount(vb, minlength=B)
+    counts = torch.zeros(B, dtype=torch.int64, device=dev).scatter_add_(
+        0, vb, torch.ones_like(vb))
     before = torch.cumsum(counts, 0) - counts
-    local = torch.arange(len(first_all), device=dev) - before[vb]
+    local = torch.ones_like(vb).cumsum(0) - 1 - before[vb]
     kept = local < max_voxels
     vkey, vb = vkey[kept], vb[kept]
     lin = vkey - vb * total
@@ -95,19 +99,23 @@ def point_voxel_map(points: torch.Tensor, points_valid: torch.Tensor,
         points=pts[order], first=first_all[kept],
         num_points=torch.clamp_max(run_len[kept], max_points).to(torch.int32),
         coords=coords, batch=vb, num_voxels=torch.clamp_max(counts,
-                                                            max_voxels))
+                                                            max_voxels),
+        max_points=max_points)
 
 
 def run_means(m: PointVoxelMap) -> torch.Tensor:
     """(N, F) mean of each voxel's kept points (reference
     VoxelFeatureExtractorV3, `det3d/models/readers/voxel_encoder.py:17-24`).
     Rank r of every run is added in turn, so the sum of a voxel runs in
-    its points' input order."""
+    its points' input order; the ranks run to the map's cap, a voxel with
+    fewer points adding exact zeros, so that the loop's length does not
+    depend on the data."""
     n_pts = m.points.shape[0]
     num = m.num_points.to(torch.int64)
-    acc = m.points.new_zeros((len(m.first), m.points.shape[1]))
-    for r in range(int(num.max()) if len(num) else 0):
-        rows = m.points[torch.clamp_max(m.first + r, n_pts - 1)]
+    acc = m.points.new_zeros((m.first.shape[0], m.points.shape[1]))
+    for r in range(m.max_points):
+        rows = m.points.index_select(0, torch.clamp_max(m.first + r,
+                                                        n_pts - 1))
         acc = acc + torch.where((num > r)[:, None], rows,
                                 torch.zeros((), dtype=rows.dtype,
                                             device=rows.device))

@@ -92,6 +92,38 @@ def test_box_geometry_matches():
                 jnp.asarray(twelve), rng_box)))
 
 
+@pytest.mark.parametrize("helper", ["box_area_bev", "yaw_to_nusc",
+                                    "boxes_to_global"])
+def test_box_tensor_helpers_match(helper):
+    """`box_area_bev`, `yaw_to_nusc` and `boxes_to_global` on tensors
+    against the jnp functions on the same float32 inputs, to 1e-5 relative
+    (the matmul's sums may be ordered otherwise)."""
+    rng = np.random.default_rng(1)
+    b = rng.uniform(-20, 20, (30, 9)).astype(np.float32)
+    if helper == "box_area_bev":
+        got = boxes.box_area_bev(torch.from_numpy(b)).numpy()
+        want = [np.asarray(jax_boxes.box_area_bev(jnp.asarray(b)))]
+        got = [got]
+    elif helper == "yaw_to_nusc":
+        got = [boxes.yaw_to_nusc(torch.from_numpy(b[:, 8])).numpy()]
+        want = [np.asarray(jax_boxes.yaw_to_nusc(jnp.asarray(b[:, 8])))]
+    else:
+        a = rng.uniform(-np.pi, np.pi)
+        rot = np.array([[np.cos(a), -np.sin(a), 0.0],
+                        [np.sin(a), np.cos(a), 0.0],
+                        [0.0, 0.0, 1.0]], np.float32)
+        trans = rng.uniform(-500, 500, 3).astype(np.float32)
+        args = (b[:, :3], b[:, 8], b[:, 6:8], rot, trans)
+        got = [t.numpy() for t in boxes.boxes_to_global(
+            *map(torch.from_numpy, args))]
+        want = [np.asarray(t) for t in jax_boxes.boxes_to_global(
+            *map(jnp.asarray, args))]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_augmentations_match_bit_for_bit(seed):
     rng = np.random.default_rng(seed)
