@@ -278,10 +278,12 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       middle_dense_dtype (K2 10 + 9 dx, fp32), pp_forecast_n3dtf and
       pp_forecast_n3dtf_two_stage (K1 once) under compute_dtype; counts
       zeroed just before the step and read just after. The step split
-      (phase 13's) and peak MiB beside the fp32 step's; the card against
-      the CPU's step under the same knob by the BF16_* rule (the card's
-      fp32 step must break it); OVERFIT_STEPS steps of finite losses.
-      scripts/torch_train_bf16_phases.py times the steps in turns.
+      (phase 13's) and peak MiB beside the fp32 step's; under (a), the
+      knob that runs K2's bf16 family, the card against the CPU's step
+      under the same knob by the BF16_* rule (the card's fp32 step must
+      break it); OVERFIT_STEPS steps of finite losses.
+      scripts/torch_train_bf16_phases.py times the steps in turns and
+      holds every knob's step to the CPU's.
   34. cli.train and cli.evaluate of forecast_n3dtf with
       --coordinator_address / --num_processes 1 / --process_id 0 (a
       one-rank NCCL group, left at the end; K2 39 a step, K1 once and K2
@@ -327,6 +329,26 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       on phase 4's scene, card against CPU within 1e-5 of max(1,
       max|CPU|).
 
+  Spatial sharding of the canvas (--space; parallel/, models/layers.py):
+  39. gloo groups of 2 and 3 processes on this card (NCCL refuses two
+      ranks on one device; the collectives are staged through the host,
+      so no figure here is a multi-card one), each rank holding a band
+      of the canvas rows, with phases 2 and 6's seeded weights, TF32 off
+      and torch's deterministic algorithms: (a) pp_forecast_n3dtf's eval
+      forward at 2 and 3 ranks (bands of 32 / 32 and 22 / 22 / 20 coarse
+      rows) on phase 4's scene, (b) forecast_n3dtf's at 2 ranks on phase
+      8's scene, (c) a B = 1 train step of each at 2 ranks on phase 10's
+      scene. Against the unsharded card runs in this process: every
+      rank's head maps within SPACE_RTOL of max |unsharded|, the first
+      rank's detections matched as in phase 4, K1 once a scene on it and
+      never on the others, K2 20 a VoxelNet scene on every rank and 20 +
+      19 dx a VoxelNet step; each step's losses, grad_norm, gradients and
+      running statistics within DP_SPREAD times the spread of the
+      unsharded step on weights nudged by SPACE_NUDGE, and the ranks'
+      gradients and statistics bit-identical. Per rank ms of the forward
+      or step and peak MiB beside the unsharded ones, halo exchanges and
+      bytes a forward or step. Every phase line carries t_s and phase_s.
+
 TF32 is turned off for convolutions and matmuls, so that the card computes
 in fp32 as the CPU does. Any failure raises; the last line is the result.
 """
@@ -370,6 +392,11 @@ GRAD_FRACTION = 1e-2
 ZERO_FRACTION = 1e-6      # of the model's max |g|: zero up to rounding
 PARAM_ATOL = 1e-6         # AdamW updates of the same gradients
 BN_BIAS_SHIFT = 3.0
+# of a layer's max |x|: the furthest a ReLU input may lie from 0 where the
+# card decided its sign otherwise than the CPU reference (the card's fp32
+# ReLU inputs lie up to 2.0e-4 of their max from float64 in the pillar
+# neck's first block, scripts/torch_probe_relu_ties.py)
+RELU_TIE_RTOL = 1e-4
 HM_ATOL = 1e-3            # card vs CPU, fp32 convs in another order
 CANVAS_ATOL = 1e-4        # card vs CPU reader output, sums in another order
 VOXEL_FEAT_ATOL = 1e-6    # card vs CPU voxel means, the same adds in order
@@ -514,10 +541,18 @@ K2_REPRESENTATIVE = {"s0_conv_input_5to16": 0, "s0_subm_16to16": 1,
 T_START = time.perf_counter()
 
 
+_LAST_PHASE_LINE = [T_START]
+
+
 def emit(obj) -> None:
-    """One JSON line; a phase's line carries the seconds since the start."""
+    """One JSON line; a phase's line carries the seconds since the start
+    (t_s) and since the previous phase line (phase_s: the phase's seconds,
+    shared among its lines where it prints several)."""
     if "phase" in obj:
-        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
+        now = time.perf_counter()
+        obj = {**obj, "t_s": round(now - T_START, 1),
+               "phase_s": round(now - _LAST_PHASE_LINE[0], 1)}
+        _LAST_PHASE_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1365,9 +1400,9 @@ def grad_ratios(got, want):
 
 
 def shift_bn_biases(model) -> None:
-    """Raise every BatchNorm bias by BN_BIAS_SHIFT: no ReLU input then lies
+    """Raise every BatchNorm bias by BN_BIAS_SHIFT: few ReLU inputs then lie
     near 0, where fp32 rounding can flip a ReLU decision between two
-    devices."""
+    devices (`ReluDecisions` takes the rest)."""
     from futuredet_torch.models.readers import MaskedBatchNorm
     with torch.no_grad():
         for m in model.modules():
@@ -1485,12 +1520,62 @@ def grad_of(p):
     return (torch.zeros_like(p) if p.grad is None else p.grad).double()
 
 
+class ReluDecisions:
+    """The ReLU decisions (input > 0) of every `nn.ReLU` module of a card
+    run, call by call (`record`), replayed into the CPU reference run of
+    the same model (`replay`): there each passes x * (the card's
+    decision). An input within rounding of 0, whose sign the card's fp32
+    sums (their order set by atomics, run to run) can flip, then does not
+    decide which gradient flows: one such flip at a GT pixel of a head
+    branch moves that branch's BatchNorm weight gradient by per cents of
+    its max. `flips` lists each layer where the decisions differ (count,
+    and the largest |x| / max |x| of the reference's input there); each
+    must lie within RELU_TIE_RTOL of its tie."""
+
+    def __init__(self):
+        self.masks, self.flips, self.handles = {}, [], []
+
+    def _hook(self, model, fn):
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.ReLU):
+                self.handles.append(m.register_forward_hook(
+                    lambda mod, inp, out, name=name: fn(name, inp[0])))
+
+    def record(self, model) -> None:
+        self._hook(model, lambda name, x: self.masks.setdefault(
+            name, []).append(x.detach() > 0))
+
+    def replay(self, model) -> None:
+        def use(name, x):
+            calls = self.masks.get(name)
+            check(bool(calls), f"ReLU {name}: no card decision to replay")
+            want = calls.pop(0).to(x.device)
+            check(want.shape == x.shape, f"ReLU {name}: card decisions "
+                  f"{tuple(want.shape)}, reference input {tuple(x.shape)}")
+            xd = x.detach()
+            differ = (xd > 0) != want
+            if bool(differ.any()):
+                top = float(xd.abs().max())
+                self.flips.append({
+                    "layer": name, "count": int(differ.sum()),
+                    "margin": float(xd.abs()[differ].max()) / top})
+            return x * want.to(x.dtype)
+        self._hook(model, use)
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+        self.handles = []
+
+
 def train_cross_check(cfg, dev, clutter, reference=torch.float32):
     """One train step of the same weights and batch on the card and on the
     CPU (plain versions, full width), every BatchNorm bias raised by
     BN_BIAS_SHIFT: emits the phase's line and checks the card against the
-    CPU run in `reference` precision. In float64 the line also gives the
-    CPU's own float32 run against it, and the card's against that run.
+    CPU run in `reference` precision, which takes the card's ReLU
+    decisions (`ReluDecisions`; the line lists where they differ from its
+    own). In float64 the line also gives the CPU's own float32 run against
+    it, and the card's against that run.
 
     A two-stage step (float64 reference) holds each trainable gradient to
     GRAD_FRACTION. Its frozen gradients reach only the grad_norm metric,
@@ -1505,10 +1590,16 @@ def train_cross_check(cfg, dev, clutter, reference=torch.float32):
     runs = {"card": (dev, torch.float32), "cpu": ("cpu", torch.float32)}
     if reference == torch.float64:
         runs["cpu64"] = ("cpu", torch.float64)
+    ref = "cpu64" if "cpu64" in runs else "cpu"
+    relus = ReluDecisions()
     nets = {}
     for where, (d, dtype) in runs.items():
         m = build_detector(cfg, device=d, seed=0).train()
         shift_bn_biases(m)
+        if where == "card":
+            relus.record(m)
+        elif where == ref:
+            relus.replay(m)
         b_ = train_batch(cfg, TRAIN_SEED, d, clutter)
         if dtype == torch.float64:
             m = m.double()
@@ -1519,7 +1610,10 @@ def train_cross_check(cfg, dev, clutter, reference=torch.float32):
             torch.cuda.synchronize()
         nets[where] = (m, float(out["loss"].detach()),
                        time.perf_counter() - t0)
-    ref = "cpu64" if "cpu64" in nets else "cpu"
+        relus.remove()
+    left = {n: len(c) for n, c in relus.masks.items() if c}
+    check(not left, f"{cfg.name}: card ReLU calls the reference did not "
+          f"make: {left}")
     (mr, lr, _), (mg, lg, card_s) = nets[ref], nets["card"]
     want = {n: grad_of(p) for n, p in mr.named_parameters()}
     grads = {w: {n: grad_of(p).cpu() for n, p in nets[w][0]
@@ -1556,7 +1650,8 @@ def train_cross_check(cfg, dev, clutter, reference=torch.float32):
             "tensors_above_1e-3": sum(r > 1e-3 for r in real.values()),
             "tensors_zero_up_to_rounding": sum(r is None
                                                for r in ratios.values()),
-            "tensors": len(ratios)}
+            "tensors": len(ratios), "relu_flips": relus.flips,
+            "relu_tie_rtol": RELU_TIE_RTOL}
     if ref == "cpu64":
         # the float32 runs' own distance from the float64 one, and from
         # each other: how well float32 conditions these gradients
@@ -1599,6 +1694,9 @@ def train_cross_check(cfg, dev, clutter, reference=torch.float32):
           f"{cfg.name}: gradient norm card {norm_g} vs CPU {norm_r}")
     check(stat_err <= STAT_RTOL, f"{cfg.name}: running statistics card vs "
           f"CPU {stat_err}")
+    far = [f for f in relus.flips if f["margin"] > RELU_TIE_RTOL]
+    check(not far, f"{cfg.name}: ReLU decisions card vs CPU differ away "
+          f"from their ties: {far}")
     over = {n: r for n, r in real.items() if r > gates[n]}
     check(not over, f"{cfg.name}: gradients card vs CPU over their gates "
           f"(of their max): {over}")
@@ -3881,13 +3979,14 @@ def bf16_cross_check(cfg, base, dev, clutter):
             "nudge": BF16_NUDGE}
 
 
-def bf16_train_path(dev, card, turns=False):
+def bf16_train_path(dev, card, turns=False, cross_checked=None):
     """Phase 33: a B = 1 train step under each BF16_TRAIN knob at full
     width: launches by kernel and route, the step split (phase 13's) and
     peak MiB beside the fp32 step's (in turns fp32, knob, knob, fp32 with
-    `turns`, else once each), the card against the CPU, and OVERFIT_STEPS
-    steps of finite losses. Returns per config {"k1", "k2", "k2_bf16"} of
-    the main-path step."""
+    `turns`, else once each), the card against the CPU for the knobs of
+    `cross_checked` (default: all; three full-width CPU steps a knob), and
+    OVERFIT_STEPS steps of finite losses. Returns per config {"k1", "k2",
+    "k2_bf16"} of the main-path step."""
     import dataclasses
 
     from futuredet_torch.config import get_config
@@ -3988,7 +4087,11 @@ def bf16_train_path(dev, card, turns=False):
                   for v in s_.values()),
               f"{cfg.name}: a loss of {OVERFIT_STEPS} steps not finite")
         line["repeated_batch_losses"] = [float(s_["loss"]) for s_ in steps]
-        line.update(bf16_cross_check(cfg, base, dev, clutter))
+        if cross_checked is None or tag in cross_checked:
+            line.update(bf16_cross_check(cfg, base, dev, clutter))
+        else:
+            line["card_vs_cpu"] = ("in scripts/torch_train_bf16_phases.py "
+                                   "(phase 33 with every knob's CPU steps)")
         emit(line)
         out[cfg.name + "_train"] = {
             "k1": counts["k1"], "k2": counts["k2_forward"] + counts["k2_dx"],
@@ -4468,6 +4571,397 @@ def tools_path(dev, card, work, pp_dir):
     return {NAME + "_postprocess_eval": {"k1": total[0], "k2": total[1]}}
 
 
+# ---------------------------------------------------------------------------
+# 39. Spatial sharding of the canvas (--space) on gloo ranks of one card
+# ---------------------------------------------------------------------------
+
+# the jobs of each layout's ranks, in order (one process a rank)
+SPACE_JOBS = {2: ("pp_eval", "vox_eval", "pp_train", "vox_train"),
+              3: ("pp_eval",)}
+SPACE_RTOL = 1e-5          # a head map's max |diff| of its max |unsharded|
+SPACE_WARMUP, SPACE_REPS = 1, 3
+SPACE_NUDGE = 2.0 ** -20   # phase 39's spread: weights scaled by 1 + this
+SPACE_TIMEOUT_S = 420      # a layout's ranks, all jobs
+# the CPU rehearsal (tests/test_torch_chip_smoke_spatial.py): the ranks
+# take the tiny configs and count K1 and K2's plain versions
+SPACE_REHEARSAL = False
+
+
+def space_config(job):
+    """The config of a phase 39 job: phase 2's pillar config (eval),
+    phase 14's (train), or forecast_n3dtf."""
+    import dataclasses
+
+    from futuredet_torch.config import get_config, tiny_variant
+    cfg = get_config(VOX_NAME if job.startswith("vox") else NAME)
+    if SPACE_REHEARSAL:
+        return tiny_variant(cfg)
+    if job == "pp_eval":
+        return cfg.replace(voxel=dataclasses.replace(
+            cfg.voxel, max_points=MAX_POINTS, max_voxels_eval=30000))
+    if job == "pp_train":
+        return cfg.replace(voxel=dataclasses.replace(
+            cfg.voxel, max_points=MAX_POINTS))
+    return cfg
+
+
+def space_inputs(job, cfg, dev):
+    """A job's scene: phase 4's uniform scene, phase 8's uniform_blobs
+    scene, or phase 10's lidar-family train batch (phase 14's clutter for
+    the pillars)."""
+    if job.endswith("train"):
+        vox = job.startswith("vox")
+        clutter = ((1500 if vox else 800) if SPACE_REHEARSAL
+                   else TRAIN_CLUTTER if vox else PILLAR_TRAIN_CLUTTER)
+        return train_batch(cfg, TRAIN_SEED, dev, clutter)
+    scene = (scene_blobs if job.startswith("vox") else scene_uniform)(
+        cfg, np.random.default_rng(0))
+    return tuple(torch.from_numpy(a).to(dev) for a in scene)
+
+
+def space_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def space_ms(fn, dev):
+    """Median wall ms of fn() synced, SPACE_REPS after SPACE_WARMUP (one
+    run on the CPU)."""
+    reps = SPACE_REPS if dev.type == "cuda" else 1
+    for _ in range(SPACE_WARMUP if dev.type == "cuda" else 0):
+        fn()
+    ts = []
+    for _ in range(reps):
+        space_sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        space_sync(dev)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def space_job(job, dev, space=None, nudge=0.0):
+    """One job of phase 39 on `dev`, whole (`space` None) or on this rank's
+    band: its outputs (eval: the head maps and, on a space group's first
+    rank or whole, the detections; train: the first step's metrics,
+    gradients before the clip and running statistics), its launches (K1,
+    K2, K2 dx; counts zeroed just before the forward or step, read just
+    after), the halo exchanges and bytes it made, ms of the forward or
+    step and peak MiB. `nudge` scales every weight by 1 + nudge after the
+    BatchNorm biases are raised (train)."""
+    from futuredet_torch.eval.decode import decode_and_nms
+    from futuredet_torch.models.detector import (build_detector,
+                                                 lay_out_space_)
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    from futuredet_torch.ops import sparse_conv as sc_mod
+    from futuredet_torch.parallel import collectives as coll
+    from futuredet_torch.train import step as step_mod
+
+    cfg = space_config(job)
+    inputs = space_inputs(job, cfg, dev)
+    k1, k2 = pallas_nms.rotate_nms_alive, pallas_gather.gather_conv
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = lay_out_space_(build_detector(cfg, device=dev, seed=0), space)
+    out = {"job": job}
+    dx_fn, dx = sc_mod.subm_conv_dx, [0]
+
+    def counting_dx(*args):
+        before = k2.launches
+        res = dx_fn(*args)
+        dx[0] += k2.launches - before
+        return res
+
+    k1.launches = k2.launches = 0
+    coll.reset_halo_stats()
+    if job.endswith("eval"):
+        decoder = space is None or space.index == 0
+        with torch.no_grad():
+            preds = model(*inputs)
+            det = decode_and_nms(cfg, preds) if decoder else None
+        space_sync(dev)
+        out["maps"] = [{k: v.cpu() for k, v in t.items() if k != "feats"}
+                       for t in preds]
+        out["det"] = None if det is None else type(det)(
+            *(x.cpu() for x in det))
+        counts_halo = dict(coll.HALO_STATS)
+        k1_n, k2_n = k1.launches, k2.launches
+
+        def forward():
+            with torch.no_grad():
+                model(*inputs)
+        out["ms"] = space_ms(forward, dev)
+    else:
+        model.train()
+        shift_bn_biases(model)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + nudge)
+        opt = step_mod.make_optimizer(cfg, model, 2 + 2 * SPACE_REPS)
+        seen = {}
+        apply_update = step_mod.apply_update
+
+        def recording(m, o, count):
+            seen.update({n: grad_of(p).float().cpu()
+                         for n, p in m.named_parameters()})
+            return apply_update(m, o, count)
+
+        step_mod.apply_update, sc_mod.subm_conv_dx = recording, counting_dx
+        try:
+            metrics = step_mod.train_step(model, opt, inputs, 0)
+            space_sync(dev)
+        finally:
+            step_mod.apply_update, sc_mod.subm_conv_dx = apply_update, dx_fn
+        counts_halo = dict(coll.HALO_STATS)
+        k1_n, k2_n = k1.launches, k2.launches
+        out["metrics"] = {k: v.detach().float().cpu()
+                          for k, v in metrics.items()}
+        out["grads"] = seen
+        out["stats"] = {n: t.detach().cpu() for n, t in model.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))}
+        count = [1]
+
+        def step():
+            step_mod.train_step(model, opt, inputs, count[0])
+            count[0] += 1
+        out["ms"] = space_ms(step, dev)
+    out["launches"] = {"k1": k1_n, "k2": k2_n, "k2_dx": dx[0]}
+    out["halo"] = counts_halo
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() / 2 ** 20
+                       if card else 0.0)
+    del model
+    return out
+
+
+def count_plain_versions():
+    """The CPU rehearsal: K1 and K2's wrappers count their plain versions'
+    calls (on the card they count their launches)."""
+    from futuredet_torch.ops import pallas_gather, pallas_nms
+    for mod, name, wrapper in (
+            (pallas_nms, "nms_alive_plain", pallas_nms.rotate_nms_alive),
+            (pallas_gather, "gather_conv_plain", pallas_gather.gather_conv)):
+        def counted(*args, plain=getattr(mod, name), wrapper=wrapper):
+            wrapper.launches += 1
+            return plain(*args)
+        setattr(mod, name, counted)
+
+
+def space_rank(rank_, world, port, out_path, device, rehearsal):
+    """One rank of phase 39: a gloo group of `world` processes on this
+    card (NCCL refuses two ranks on one device), the space layout of one
+    space group, every job of SPACE_JOBS[world] on its band under torch's
+    deterministic algorithms, TF32 off; the results saved to
+    `out_path`."""
+    import torch.distributed as dist
+
+    from futuredet_torch.parallel.mesh import make_space_group
+    global SPACE_REHEARSAL
+    SPACE_REHEARSAL = rehearsal
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+        count_plain_versions()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank_)
+    try:
+        space = make_space_group(world)
+        res = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+               "device": str(dev), "index": space.index,
+               "jobs": [space_job(job, dev, space)
+                        for job in SPACE_JOBS[world]]}
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_space_ranks(world, dev, work):
+    """Phase 39's `world` ranks, each its own process, waited for with
+    SPACE_TIMEOUT_S; a rank that fails or times out fails the phase (every
+    rank is killed). Returns the ranks' results and the seconds."""
+    port = free_port()
+    outs = [os.path.join(work, f"space{world}_rank{r}.pt")
+            for r in range(world)]
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as cs; cs.space_rank(int(sys.argv[2]), "
+            "int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6], "
+            "sys.argv[7] == '1')")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, ROOT, str(r), str(world), str(port),
+         outs[r], dev.type, "1" if SPACE_REHEARSAL else "0"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SPACE_TIMEOUT_S)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"space rank {r}/{world} failed "
+              f"(exit {p.returncode}): {log[-3000:]}")
+    return ([torch.load(o, weights_only=False) for o in outs],
+            time.perf_counter() - t0)
+
+
+def space_train_rule(got, plain, other):
+    """Phase 39's rule for a sharded train step `got` against the
+    unsharded one `plain` on the same weights and batch: within DP_SPREAD
+    times the distance of `other`, the unsharded step with every weight
+    nudged by SPACE_NUDGE (rounding-sized changes, carried through the
+    model as the banded step's other order of additions is), quantity by
+    quantity; a gradient tensor whose own spread is below ZERO_FRACTION
+    of the model's max |g| by that floor. Returns {quantity: (err,
+    limit)} and the violations."""
+    out = {}
+    for k in ("loss", "hm_loss", "loc_loss", "grad_norm"):
+        a, b, c = (x["metrics"][k].double() for x in (got, plain, other))
+        ulp = 2.0 ** -23 * float(b.abs().max())
+        out[f"metric:{k}"] = (float((a - b).abs().max()), DP_SPREAD * max(
+            float((c - b).abs().max()), ulp))
+    top = max(float(g.abs().max()) for g in plain["grads"].values())
+    for n, g in plain["grads"].items():
+        spread = float((other["grads"][n] - g).abs().max())
+        out[f"grad:{n}"] = (float((got["grads"][n] - g).abs().max()),
+                            DP_SPREAD * max(spread, ZERO_FRACTION * top))
+    for n, s in plain["stats"].items():
+        spread = float((other["stats"][n] - s).abs().max())
+        out[f"stat:{n}"] = (float((got["stats"][n] - s).abs().max()),
+                            DP_SPREAD * max(spread, 2.0 ** -23 * float(
+                                s.abs().max())))
+    return out, {k: v for k, v in out.items() if not v[0] <= v[1]}
+
+
+def space_path(dev, card, work):
+    """Phase 39: spatial sharding of the canvas on gloo ranks of this card
+    (host-staged collectives; NCCL refuses two ranks on one device, so
+    this is no multi-card figure). The unsharded references in this
+    process, under torch's deterministic algorithms and flax's
+    BatchNorm formula (the banded one's): phase 4's pillar scene, phase
+    8's VoxelNet scene and a B = 1 train step of each model on phase 10's
+    scene (every BatchNorm bias raised by BN_BIAS_SHIFT, as phase 12), the
+    step again on weights nudged by SPACE_NUDGE (the spread); then
+    SPACE_JOBS on 2 ranks and pp_eval on 3 (uneven bands). Checks: every
+    rank's head maps within SPACE_RTOL of max |unsharded|, the first
+    rank's detections matched as in phase 4 (near ties let off at the
+    cut within NEAR_CAP), K1 once a scene on it and never on the others,
+    K2 20 a VoxelNet scene on
+    every rank, 20 + 19 a VoxelNet step; the step by `space_train_rule` on
+    every rank, the ranks' gradients and running statistics bit-identical.
+    Figures: per rank ms of the forward or step and peak MiB beside the
+    unsharded ones, halo exchanges and bytes a forward or step. Returns
+    the launches of the ranks' runs."""
+    from futuredet_torch.models.layers import BatchNorm2d
+    from futuredet_torch.parallel import collectives as coll
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    # the banded BatchNorms take flax's formula: so does the reference
+    BatchNorm2d.flax_stats = True
+    try:
+        ref = {job: space_job(job, dev) for job in SPACE_JOBS[2]}
+        other = {job: space_job(job, dev, nudge=SPACE_NUDGE)
+                 for job in SPACE_JOBS[2] if job.endswith("train")}
+    finally:
+        BatchNorm2d.flax_stats = False
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    check(coll.HALO_STATS["exchanges"] == 0, "the unsharded runs exchanged "
+          "halos")
+    ref_s = time.perf_counter() - t0
+    runs = {w: run_space_ranks(w, dev, work) for w in sorted(SPACE_JOBS)}
+    launches = {}
+    for world, (ranks, secs) in runs.items():
+        line = {"phase": "spatial_sharding", "card": card,
+                "backend": ranks[0]["backend"], "ranks": world,
+                "ranks_on": sorted({r["device"] for r in ranks}),
+                "collectives": "gloo, staged through the host: one card, "
+                               "not a multi-card figure",
+                "ranks_s": round(secs, 3), "references_s": round(ref_s, 3)}
+        for j, job in enumerate(SPACE_JOBS[world]):
+            got = [r["jobs"][j] for r in ranks]
+            base = ref[job]
+            vox = job.startswith("vox")
+            per = {"ms": [g["ms"] for g in got], "unsharded_ms": base["ms"],
+                   "peak_mib": [g["peak_mib"] for g in got],
+                   "unsharded_peak_mib": base["peak_mib"],
+                   "launches": [g["launches"] for g in got],
+                   "halo_exchanges": [g["halo"]["exchanges"] for g in got],
+                   "halo_bytes": [g["halo"]["bytes"] for g in got]}
+            check(all(g["halo"]["exchanges"] > 0 for g in got),
+                  f"{job} at {world} ranks: no halo exchange")
+            if job.endswith("eval"):
+                err = 0.0
+                for g in got:
+                    for t_got, t_ref in zip(g["maps"], base["maps"]):
+                        check(set(t_got) == set(t_ref), f"{job}: map keys")
+                        for k, v in t_ref.items():
+                            e = float((t_got[k] - v).abs().max())
+                            check(e <= SPACE_RTOL * float(v.abs().max()),
+                                  f"{job} at {world} ranks, {k}: {e} off "
+                                  f"(max {float(v.abs().max())})")
+                            err = max(err, e)
+                hm_err = max(float((torch.sigmoid(a["hm"])
+                                    - torch.sigmoid(b["hm"])).abs().max())
+                             for g in got
+                             for a, b in zip(g["maps"], base["maps"]))
+                # the regression maps' differences move boxes, and with
+                # them NMS decisions among the untrained heads' near ties
+                # at the cut: a cut of NEAR_CAP, as phases 4 and 8 reach
+                match = check_detections_match(space_config(job),
+                                               got[0]["det"], base["det"],
+                                               NEAR_CAP)
+                check(all(g["det"] is None for g in got[1:]),
+                      f"{job}: a rank other than the first decoded")
+                want = [{"k1": int(i == 0), "k2": 20 if vox else 0,
+                         "k2_dx": 0} for i in range(world)]
+                check(per["launches"] == want,
+                      f"{job} at {world} ranks: launches {per['launches']}")
+                per.update(max_abs_err=err, heatmap_max_abs_err=hm_err,
+                           kept=match[:2], let_off_at_the_cut=match[2])
+            else:
+                for g in got[1:]:
+                    for kind in ("grads", "stats"):
+                        for n, a in got[0][kind].items():
+                            check(torch.equal(a, g[kind][n]),
+                                  f"{job}: ranks' {kind} {n} differ")
+                measures, bad = space_train_rule(got[0], base, other[job])
+                check(not bad, f"{job} at {world} ranks beyond the rule: "
+                      f"{dict(list(bad.items())[:8])}")
+                worst = max(measures.items(),
+                            key=lambda kv: kv[1][0] / max(kv[1][1], 1e-300))
+                want = [{"k1": 0, "k2": 39 if vox else 0,
+                         "k2_dx": 19 if vox else 0}] * world
+                check(per["launches"] == want,
+                      f"{job} at {world} ranks: launches {per['launches']}")
+                per.update(loss=float(got[0]["metrics"]["loss"]),
+                           unsharded_loss=float(base["metrics"]["loss"]),
+                           grad_norm=float(got[0]["metrics"]["grad_norm"]),
+                           unsharded_grad_norm=float(
+                               base["metrics"]["grad_norm"]),
+                           worst_of_rule={worst[0]: worst[1]},
+                           quantities=len(measures), dp_spread=DP_SPREAD)
+            line[job] = per
+            launches[f"{space_config(job).name}_space{world}_{job}"] = {
+                "k1": sum(x["k1"] for x in per["launches"]),
+                "k2": sum(x["k2"] for x in per["launches"])}
+        emit(line)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4526,13 +5020,16 @@ def main() -> int:
         two_cli = two_stage_cli_path(dev, card, pp_dir, pp_map)
         serving = serving_path(dev, card)
         dense = dense_middle_path(dev, card)
-        bf16_train = bf16_train_path(dev, card)
+        # the CPU cross-check of the knob that runs K2's bf16 family; the
+        # other three knobs' are scripts/torch_train_bf16_phases.py's
+        bf16_train = bf16_train_path(dev, card, cross_checked=("a_bf16",))
         dp = dp_path(dev, card, work)
         exported = export_path(dev, card, work)
         profiled = profile_path(dev, card, work)
         flops_path(dev, card, {NAME: k1["scene_ms"],
                                VOX_NAME: vox["scene_ms"]})
         post = tools_path(dev, card, work, pp_dir)
+        space = space_path(dev, card, work)
 
     evals = {NAME + "_eval": pp_eval, VOX_NAME + "_eval": vox_eval, **tta,
              **nusc, **modes_cli, **two_cli, **serving["paths"], **dense,
@@ -4541,7 +5038,7 @@ def main() -> int:
                                          + v["k2_dx"]}
                 for n, v in modes_train.items()},
              **{n: {"k1": v["k1"], "k2": v["k2"]} for n, v in two.items()},
-             **bf16_train, **dp, **exported, **profiled, **post,
+             **bf16_train, **dp, **exported, **profiled, **post, **space,
              **{f"{n}_train": {"k1": v["k1"], "k2": v["k2_forward"]
                                + v["k2_dx"]}
                 for n, v in two_train.items()}}

@@ -36,6 +36,13 @@ scores the whole set, and rank 0 writes the metrics and the
 `--extractBox` pickle, as the JAX CLI does
 (`futuredet_tpu/cli/evaluate.py:90-127,249-256`). Every rank must get as
 many batches as the others.
+
+`--space S` shards the BEV rows of each batch over S ranks (the train
+CLI's layout: rank r is data index r // S and space index r % S): the
+ranks of a space group run the forward of the same batches, their data
+index's share, and the first rank of each space group decodes, gathers
+its share's detections over the data ranks and scores the set; rank 0
+writes the metrics. Under NCCL every rank needs its own card.
 """
 from __future__ import annotations
 
@@ -49,8 +56,6 @@ import time
 from collections import deque
 
 import numpy as np
-
-from ..parallel.mesh import SPATIAL_SHARDING
 
 log = logging.getLogger(__name__)
 
@@ -93,7 +98,8 @@ def parse_args(argv=None):
                         "({classname}_trajectory.pkl, a numpy pickle)")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--space", type=int, default=1,
-                   help="spatial sharding of the BEV rows (not ported)")
+                   help="ranks of a space group, which shard the BEV rows "
+                        "of one batch (it divides --num_processes)")
     p.add_argument("--extractBox", action="store_true",
                    help="save the decoded detections to a pkl after "
                         "inference (ref tools/dist_test.py:156,252)")
@@ -133,9 +139,9 @@ def parse_args(argv=None):
 
 def refuse_unported(args, cfg) -> None:
     """Flags whose paths the port does not have yet raise, naming their
-    ROADMAP.md item."""
-    if args.space > 1:
-        raise NotImplementedError(SPATIAL_SHARDING)
+    ROADMAP.md item (the train CLI's rule)."""
+    from .train import refuse_unported as refuse
+    refuse(args, cfg)
 
 
 def synthetic_batches(cfg, n: int, batch_size: int, seed: int):
@@ -150,14 +156,15 @@ def synthetic_batches(cfg, n: int, batch_size: int, seed: int):
     return out
 
 
-def restore_model(cfg, args, dev):
-    """build_detector(cfg, seed=0) with the checkpoint that
-    --checkpoint_dir / --modelCheckPoint name restored into it; without a
-    checkpoint, a warning and the seeded init."""
-    from ..models.detector import build_detector
+def restore_model(cfg, args, dev, space=None):
+    """build_detector(cfg, seed=0) under the space layout `space` (if any)
+    with the checkpoint that --checkpoint_dir / --modelCheckPoint name
+    restored into it; without a checkpoint, a warning and the seeded
+    init."""
+    from ..models.detector import build_detector, lay_out_space_
     from ..train.checkpoints import CheckpointManager
 
-    model = build_detector(cfg, device=dev, seed=0)
+    model = lay_out_space_(build_detector(cfg, device=dev, seed=0), space)
     ckpt_dir = args.checkpoint_dir or os.path.abspath(
         f"models/{args.experiment}/{args.dataset}_{args.architecture}_"
         f"{args.model}_detection")
@@ -180,10 +187,11 @@ def restore_model(cfg, args, dev):
     return model.eval()
 
 
-def make_infer(cfg, model, tta: str):
+def make_infer(cfg, model, tta: str, decode: bool = True):
     """points, valid (and a bev_map config's ego map) on the device ->
     Detections on the device: a two-stage model's refined detections (JAX
-    evaluate.py:187-197)."""
+    evaluate.py:187-197). Without `decode` (a space group's other ranks)
+    the forward alone, and None; under --tta every rank decodes."""
     import torch
 
     from ..data.feed import unpack_points
@@ -199,6 +207,8 @@ def make_infer(cfg, model, tta: str):
         if tta_fn is not None:
             return tta_fn(cfg, model, points, valid)
         out = model(points, valid, bev_map)
+        if not decode:
+            return None
         if cfg.model.two_stage_refine:
             return refined_detections(*out[1:])
         return decode_and_nms(cfg, out)
@@ -254,9 +264,18 @@ def _evaluate(args, cfg, n_proc: int, me: int):
     from ..eval.metrics import evaluate_forecasts
     from ..models.detector import resolve_device
     from ..parallel.collectives import gather_eval_batch
+    from ..parallel.mesh import data_axis_size, make_space_group
 
     if n_proc > 1:
         log.info("multi-process evaluation: process %d/%d", me, n_proc)
+    # the (data, space) layout: this rank's data share, and whether it
+    # decodes (the first rank of its space group) and in which group it
+    # gathers
+    n_data = data_axis_size(args.space)
+    space = None if args.eval_only else make_space_group(args.space)
+    shard = me // args.space
+    decoder = space is None or space.index == 0
+    group = None if space is None else space.data
     if args.tta != "none" and cfg.model.head.bev_map:
         # the JAX package's TTA forward takes no map either
         # (futuredet_tpu/cli/evaluate.py:197-204)
@@ -278,14 +297,14 @@ def _evaluate(args, cfg, n_proc: int, me: int):
         # this rank's strided share (the JAX CLI's)
         eval_batches = synthetic_batches(cfg, args.synthetic,
                                          args.batch_size,
-                                         args.seed)[me::n_proc]
+                                         args.seed)[shard::n_data]
         n_b = len(eval_batches)
     elif args.info_path:
         cfg, ds = info_dataset(cfg, args.info_path, train=False)
         eval_batches = prefetch(batches_from_dataset(
             ds, cfg, args.batch_size, shuffle=False, loop=False,
-            num_shards=n_proc, shard_id=me), depth=2)
-        n_b = len(range(me, len(ds), n_proc)) // args.batch_size
+            num_shards=n_data, shard_id=shard), depth=2)
+        n_b = len(range(shard, len(ds), n_data)) // args.batch_size
     else:
         raise SystemExit(
             "no dataset: pass --info_path <infos pkl> or --synthetic N")
@@ -307,9 +326,11 @@ def _evaluate(args, cfg, n_proc: int, me: int):
         det, ready, gt, tokens = item
         if ready is not None:
             ready.synchronize()       # this batch's copy, not the next one
-        if n_proc > 1 and not args.eval_only:
+        if not decoder:
+            return
+        if n_data > 1 and not args.eval_only:
             # every rank scores the whole batch (the JAX CLI's gather)
-            det, gt, tokens = gather_eval_batch(det, gt, tokens)
+            det, gt, tokens = gather_eval_batch(det, gt, tokens, group)
         else:
             det = host_detections(det)
         if args.extractBox:
@@ -341,8 +362,8 @@ def _evaluate(args, cfg, n_proc: int, me: int):
     else:
         dev = resolve_device(args.device)
         on_card = dev.type == "cuda"
-        model = restore_model(cfg, args, dev)
-        infer = make_infer(cfg, model, args.tta)
+        model = restore_model(cfg, args, dev, space)
+        infer = make_infer(cfg, model, args.tta, decode=decoder)
 
         def dev_slice(b):
             # the wire format of --feed_dtype, decoded on the device; the
@@ -359,7 +380,7 @@ def _evaluate(args, cfg, n_proc: int, me: int):
         def to_host(det):
             """The detections' copy to pinned host memory, queued behind
             the batch's work, and an event that marks its end."""
-            if not on_card:
+            if not on_card or det is None:
                 return det, None
             det = type(det)(*(x.to("cpu", non_blocking=True) for x in det))
             ready = torch.cuda.Event()
@@ -424,6 +445,9 @@ def _evaluate(args, cfg, n_proc: int, me: int):
                 pickle.dump(saved, f)
             log.info("detections saved to %s", pred_path)
 
+    if not decoder:
+        # the space group's first rank decodes and scores its share
+        return None
     results = evaluate_forecasts(
         preds, gts, eval_classes, tp_pct=args.tp_pct,
         cohort_analysis=args.cohort_analysis, topk=args.K,

@@ -43,7 +43,22 @@ size. `--batch_size` is per rank:
 
 `--profile DIR` wraps the training in a `torch.profiler` trace of the
 host and the card (`utils/profiling.py::trace`), written into DIR.
-Spatial sharding (`--space > 1`) raises, naming its ROADMAP.md item.
+
+`--space S` shards the BEV canvas's rows over S ranks (the JAX CLI's
+GSPMD spatial sharding; `parallel/mesh.py`, `train/step.py`): the
+`--num_processes` ranks are `n_data x S`, rank r is data index r // S and
+space index r % S, the ranks of a space group read the same batches (the
+shard of their data index) and each holds a band of the rows through the
+RPN and the head. Steps per epoch and `--autoscale_lr` count the data
+ranks. Under NCCL every rank needs its own card (NCCL refuses two ranks
+on one device); on the CPU, gloo ranks with `--device cpu`:
+
+  python -m futuredet_torch.cli.train --model pp_forecast_n3dtf --tiny \
+      --device cpu --synthetic 4 --space 2 --num_processes 2 \
+      --process_id R --coordinator_address 127.0.0.1:29500
+
+A two-stage config or `dcn_head` under `--space` raises, naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -55,8 +70,6 @@ import logging
 import os
 
 import numpy as np
-
-from ..parallel.mesh import SPATIAL_SHARDING
 
 log = logging.getLogger(__name__)
 
@@ -93,7 +106,8 @@ def parse_args(argv=None):
                    help="scale lr_max linearly by the number of data-"
                         "parallel ranks (ref tools/train.py:94-95)")
     p.add_argument("--space", type=int, default=1,
-                   help="spatial sharding of the BEV rows (not ported)")
+                   help="ranks of a space group, which shard the BEV rows "
+                        "of one batch (it divides --num_processes)")
     p.add_argument("--first_stage_checkpoint", default=None,
                    help="a *_two_stage config: graft the latest checkpoint "
                         "in this directory of the single-stage config into "
@@ -125,7 +139,8 @@ def refuse_unported(args, cfg) -> None:
     """Flags whose paths the port does not have yet raise, naming their
     ROADMAP.md item."""
     if args.space > 1:
-        raise NotImplementedError(SPATIAL_SHARDING)
+        from ..models.detector import refuse_unbanded
+        refuse_unbanded(cfg)
 
 
 def train_config(cfg, args, n_devices: int = 1):
@@ -208,12 +223,14 @@ def first_stage_graft(args, device):
 
 def info_batches(cfg, args, batch_size: int, pin_memory: bool):
     """The real-data branch of the JAX CLI: GT-AUG unless --no_gt_aug, the
-    CBGS-resampled train dataset of --info_path, and this rank's strided
-    share of its looping batches without the host `gt` and `tokens`.
+    CBGS-resampled train dataset of --info_path, and the strided share of
+    its looping batches of this rank's data index (the ranks of a
+    `--space` group share one) without the host `gt` and `tokens`.
     Returns (cfg with the data's point width, batches, steps per
     epoch)."""
     from ..data.pipeline import batches_from_dataset, info_dataset
     from ..parallel.collectives import rank, world_size
+    n_data = world_size() // args.space
 
     # GT-AUG paste sampler (ref Preprocess builds it whenever the config
     # carries a db_sampler dict, preprocess.py:103-106; groups from
@@ -229,9 +246,9 @@ def info_batches(cfg, args, batch_size: int, pin_memory: bool):
                for b in batches_from_dataset(ds, cfg, batch_size,
                                              seed=args.seed,
                                              pin_memory=pin_memory,
-                                             num_shards=world_size(),
-                                             shard_id=rank()))
-    return cfg, batches, max(len(ds) // (batch_size * world_size()), 1)
+                                             num_shards=n_data,
+                                             shard_id=rank() // args.space))
+    return cfg, batches, max(len(ds) // (batch_size * n_data), 1)
 
 
 def main(argv=None):
@@ -258,8 +275,8 @@ def main(argv=None):
                                   args.num_processes, args.process_id, dev)
     try:
         if n_proc > 1:
-            log.info("data-parallel training: process %d/%d", rank(),
-                     n_proc)
+            log.info("data-parallel training: process %d/%d, %d ranks a "
+                     "space group", rank(), n_proc, args.space)
         return _train(args, cfg, dev, data_axis_size(args.space))
     finally:
         leave(args.coordinator_address)
@@ -303,7 +320,7 @@ def _train(args, cfg, dev, n_data: int):
         state = train(cfg, batches, steps_per_epoch=steps_per_epoch,
                       work_dir=work_dir, resume=args.resume_from,
                       val_fn=val_fn, hooks=hooks, device=dev,
-                      init_transform=init_transform)
+                      init_transform=init_transform, n_space=args.space)
     log.info("training done at step %d; checkpoints in %s", state.step,
              work_dir)
     return state

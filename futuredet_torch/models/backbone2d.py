@@ -9,15 +9,23 @@ us_stride < 1), outputs concatenated along channels. Takes and returns NCHW.
 Module layout = reference keys: `blocks.{i}` is
 [ZeroPad2d(0), conv(1), bn(2), relu(3), conv(4+3j), bn(5+3j), relu(6+3j)...],
 `deblocks.{k}` is [conv or transpose conv(0), bn(1), relu(2)].
+
+Under spatial sharding (`models/layers.py`) the RPN runs on a band of
+rows. The bands are those of its coarsest level (`parallel/mesh.py::
+band_bounds`), times each finer level's stride: every block and deblock
+then maps its band onto the next level's, and the deblocks' outputs
+concatenate on every rank with no re-banding.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from .layers import ConvBNReLU, DeconvBNReLU, SplitInputConv2d, conv_bn_relu
+from .layers import (BandPad2d, ConvBNReLU, DeconvBNReLU, SplitInputConv2d,
+                     conv_bn_relu)
 
 
 class RPN(nn.Module):
@@ -37,9 +45,10 @@ class RPN(nn.Module):
         for i, n in enumerate(layer_nums):
             c = ds_filters[i]
             # explicit pad + unpadded conv: the reference's stem structure
-            layers = [nn.ZeroPad2d(1),
+            layers = [BandPad2d(1, 3, ds_strides[i]),
                       *conv_bn_relu(cin, c, 3, ds_strides[i], bias=False,
                                     padding=0, conv=SplitInputConv2d, **cd)]
+            layers[1].after_band_pad = True
             for _ in range(n):
                 layers += conv_bn_relu(c, c, 3, 1, bias=False, **cd)
             blocks.append(nn.Sequential(*layers))
@@ -56,6 +65,12 @@ class RPN(nn.Module):
             cin = c
         self.blocks = nn.ModuleList(blocks)
         self.deblocks = nn.ModuleList(deblocks)
+        # rows of the input and of the output for one row of the coarsest
+        # level
+        self.in_rows = math.prod(ds_strides)
+        self.out_rows = round(self.in_rows * us_strides[0] / math.prod(
+            ds_strides[:self.upsample_start + 1])) if deblocks \
+            else 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ups = []

@@ -24,6 +24,18 @@ dtypes in the backward (`models/layers.py`, `ops/sparse_conv.py::
 SparseConvFunction`, `models/middle.py::SparseConv.dense`); `window*`,
 `hybrid` and `bf16_packed` train as fp32 (`SparseMiddleEncoder.conv_algo`,
 `conv_form`).
+
+Spatial sharding (`lay_out_space_`, the JAX `canvas_sharding`
+constraint, futuredet_tpu/models/detector.py:100-104,199-200): the prefix
+before the canvas (the pillar reader; voxelize and the sparse middle or
+the dense forms) runs whole on every rank of a space group, on the same
+scene, and each rank cuts its band of the canvas's rows (the RPN's band
+rule, `models/backbone2d.py`); z_crush with its re-mask, the RPN and the
+head run on the band (`models/layers.py`), and the head maps are gathered
+whole to every rank (`parallel/collectives.py::gather_rows`) for the
+decode and the loss. The band's backward hands the prefix only its rows'
+cotangent, so each rank's gradients are its band's share, summed over the
+space group by the train step.
 """
 from __future__ import annotations
 
@@ -35,10 +47,11 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..ops.sparse_conv import out_dims_of
 from ..ops.voxelize import PointVoxelMap, point_voxel_map, run_means
+from ..parallel.collectives import gather_rows
 from .backbone2d import RPN
 from .center_head import CenterHead
 from .layers import (ConvBNReLU, SplitInputConv2d, init_weights_,
-                     torch_dtype)
+                     lay_out_rows_, torch_dtype)
 from .middle import SparseConv, SparseMiddleEncoder, stage_pads
 from .readers import PillarFeatureNetDirect
 
@@ -70,7 +83,47 @@ def _with_bev(preds: List[Dict[str, torch.Tensor]], x: torch.Tensor,
     return (preds, x.permute(0, 2, 3, 1)) if return_bev else preds
 
 
-class PointPillarsDetector(nn.Module):
+class _Tower(nn.Module):
+    """What the detectors share past the canvas: the neck and the head,
+    on the whole canvas or, under a space layout, on this rank's band."""
+    space = None
+
+    def canvas_band(self, rows: int) -> Tuple[int, int]:
+        """This rank's band of a canvas of `rows` rows (the neck's
+        input)."""
+        coarse, rest = divmod(rows, self.neck.in_rows)
+        if rest:
+            raise ValueError(f"a canvas of {rows} rows is not a whole "
+                             f"number of the RPN's coarsest rows "
+                             f"({self.neck.in_rows} each)")
+        return self.space.band(coarse, self.neck.in_rows)
+
+    def tower(self, x: torch.Tensor, bev_map: Optional[torch.Tensor],
+              return_bev: bool, rows: int):
+        """x: the NCHW canvas (its band under a space layout, of a canvas
+        of `rows` rows) -> the head maps of the whole canvas."""
+        if self.space is None:
+            x = self.neck(x)
+            return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
+        if return_bev:
+            raise NotImplementedError(
+                "return_bev under spatial sharding: the second stage "
+                "pools the whole canvas (ROADMAP.md, spatial sharding of "
+                "the two-stage model)")
+        coarse = rows // self.neck.in_rows
+        x = self.neck(x)
+        if bev_map is not None:
+            a, b = self.space.band(coarse, self.neck.out_rows)
+            bev_map = bev_map[:, a:b]
+        bands = self.space.bands(coarse, self.neck.out_rows)
+        # the forecast features feed the next head inside the band; the
+        # decode and the loss read the rest
+        return [{k: gather_rows(v, 1, bands, self.space)
+                 for k, v in task.items() if k != "feats"}
+                for task in self.bbox_head(x, bev_map)]
+
+
+class PointPillarsDetector(_Tower):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
         self.cfg = cfg
@@ -99,11 +152,15 @@ class PointPillarsDetector(nn.Module):
         maps; with `return_bev`, (those, the (B, H, W, C) neck output) for
         the second stage's pooling."""
         canvas = self.reader(points, points_valid)            # (B, H, W, C)
-        x = self.neck(canvas.permute(0, 3, 1, 2))
-        return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
+        x = canvas.permute(0, 3, 1, 2)
+        rows = x.shape[2]
+        if self.space is not None:
+            a, b = self.canvas_band(rows)
+            x = x[:, :, a:b]
+        return self.tower(x, bev_map, return_bev, rows)
 
 
-class VoxelNetDetector(nn.Module):
+class VoxelNetDetector(_Tower):
     """Mean-VFE voxels -> sparse middle encoder -> z_crush -> RPN ->
     CenterHead (ref det3d/models/detectors/voxelnet.py + scn.py), or with
     `middle="dense"` the JAX package's dense BEV tower. After a forward,
@@ -170,12 +227,19 @@ class VoxelNetDetector(nn.Module):
         feats, vm = self.voxelize(points, points_valid)
         if self.cfg.model.middle == "dense":
             x = self.dense_bev(feats, vm, points.shape[0])
+            rows = x.shape[2]
+            if self.space is not None:
+                a, b = self.canvas_band(rows)
+                x = x[:, :, a:b]
         else:
             bev, zmask = self.backbone(feats, vm.coords, vm.batch,
                                        points.shape[0])
+            rows = bev.shape[1]
+            if self.space is not None:
+                a, b = self.canvas_band(rows)
+                bev, zmask = bev[:, a:b], zmask[:, a:b]
             x = self.crush(bev, zmask)
-        x = self.neck(x)
-        return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
+        return self.tower(x, bev_map, return_bev, rows)
 
     def voxelize(self, points: torch.Tensor, points_valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, PointVoxelMap]:
@@ -252,6 +316,36 @@ def init_single_stage_(model: nn.Module, g: torch.Generator) -> None:
         if isinstance(m, SparseConv):
             m.reset_parameters(g)
     model.bbox_head.reset_init()
+
+
+def refuse_unbanded(cfg: ExperimentConfig) -> None:
+    """Raise NotImplementedError, naming its ROADMAP.md item, for a config
+    that has no banded form yet."""
+    if cfg.model.two_stage_refine:
+        raise NotImplementedError(
+            "a two-stage config under --space: its RoI head runs on "
+            "replicated data, whose gradients the space group must not sum "
+            "(ROADMAP.md, spatial sharding of the two-stage model)")
+    if cfg.model.head.dcn_head:
+        raise NotImplementedError(
+            "dcn_head under --space: the deformable offsets reach beyond a "
+            "one-row halo (ROADMAP.md, spatial sharding with dcn_head)")
+
+
+def lay_out_space_(model: nn.Module, space) -> nn.Module:
+    """`model`, a detector of `build_detector`, under the space layout
+    `space` (`parallel/mesh.py::SpaceGroup`; nothing for None): the
+    prefix whole on every rank, the rest banded. Raises for a config with
+    no banded form (`refuse_unbanded`)."""
+    if space is None:
+        return model
+    refuse_unbanded(model.cfg)
+    model.space = space
+    lay_out_rows_(model, space, banded=False)
+    for part in ("z_crush", "neck", "bbox_head"):
+        if hasattr(model, part):
+            lay_out_rows_(getattr(model, part), space, banded=True)
+    return model
 
 
 def build_detector(cfg: ExperimentConfig,

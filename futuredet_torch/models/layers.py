@@ -16,17 +16,31 @@ float type is promoted to the parameters' type, as jnp promotes bf16 with
 fp32. Training follows flax's dtype at every step of the backward: a
 bf16 conv's gradients are bf16 products (dW promoted to the fp32
 parameter by the cast's backward), the BatchNorm's fp32 (`BatchNorm2d`).
+
+Spatial sharding (`--space`, `parallel/mesh.py::SpaceGroup`): a layer
+whose `space` is set and `banded` true holds a band of the canvas rows.
+A conv of kernel k, stride s and padding p reads p rows of the band above
+and k - s - p rows of the band below (`parallel/collectives.py::
+halo_rows`: 1 and 1 for a 3x3 stride-1 conv, 1 and 0 for the stride-2
+stems after `BandPad2d`, none for a 1x1 conv, the 2x2 stride-2 conv and a
+transposed conv whose kernel is its stride); every band starts on a
+multiple of the stride. A BatchNorm in training sums its band's x, x^2
+and count over the space group and averages the means over the data
+group. A layer with `space` set and `banded` false runs whole on every
+rank of the space group (the prefix before the canvas): its statistics
+are averaged over the data group alone, the ranks of a space group
+holding the same ones.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import pmean, world_size
+from ..parallel.collectives import halo_rows, pmean, psum, world_size
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; flax momentum 0.99
@@ -42,10 +56,25 @@ def torch_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     raise ValueError(f"dtype {name!r}: the port takes 'bfloat16' or None")
 
 
+def band_halo(kernel: int, stride: int, pad: int) -> Tuple[int, int]:
+    """The rows a banded window of `kernel` rows at `stride` reads above
+    and below its band after `pad` rows of zeros (a band starting on a
+    multiple of the stride)."""
+    bot = kernel - stride - pad
+    if bot < 0:
+        raise ValueError(f"a {kernel}-row window at stride {stride}, pad "
+                         f"{pad} does not map bands onto bands")
+    return pad, bot
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d (same parameters and keys) in `compute_dtype`, where the
     bias is added to the conv's rounded output, as flax's `nn.Conv` adds
-    it."""
+    it. Banded under a space layout (module docstring); a conv after a
+    `BandPad2d` (`after_band_pad`) reads the rows that pad exchanged."""
+    space = None
+    banded = False
+    after_band_pad = False
 
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
                  **kwargs):
@@ -56,17 +85,46 @@ class Conv2d(nn.Conv2d):
         return None if t is None else t.to(self.compute_dtype
                                            or self.weight.dtype)
 
+    def rows(self, x: torch.Tensor):
+        """(x with its halo rows, the conv's padding, the output rows to
+        crop at each end): the padding itself outside a band. Inside one
+        a stride-1 conv keeps its padding and crops the rows that padding
+        adds, as a conv padded by columns alone ((0, p)) is one that
+        cuDNN's heuristics can run through an FFT algorithm at band
+        shapes: 179 ms and a 16.8 GB workspace for the VoxelNet head's
+        512 -> 64 conv on 92 x 180 rows, where (p, p) takes 0.39 ms
+        (scripts/torch_probe_band_convs.py, NVIDIA H100 80GB HBM3,
+        700 W)."""
+        if not self.banded or self.after_band_pad:
+            return x, self.padding, 0
+        p = self.padding[0]
+        top, bot = band_halo(self.kernel_size[0], self.stride[0], p)
+        x = halo_rows(x, top, bot, self.space)
+        if self.stride[0] == 1 and top == bot == p:
+            return x, self.padding, p
+        return x, (0, self.padding[1]), 0
+
+    @staticmethod
+    def crop(y: torch.Tensor, rows: int) -> torch.Tensor:
+        return y[:, :, rows:y.shape[2] - rows] if rows else y
+
+    def conv(self, x, w, b) -> torch.Tensor:
+        x, pad, crop = self.rows(x)
+        return self.crop(F.conv2d(x, w, b, self.stride, pad, self.dilation,
+                                  self.groups), crop)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None or self.bias is None:
-            return self._conv_forward(self.cast(x), self.cast(self.weight),
-                                      self.cast(self.bias))
-        y = self._conv_forward(self.cast(x), self.cast(self.weight), None)
+            return self.conv(self.cast(x), self.cast(self.weight),
+                             self.cast(self.bias))
+        y = self.conv(self.cast(x), self.cast(self.weight), None)
         return y + self.cast(self.bias)[:, None, None]
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """nn.ConvTranspose2d (same parameters and keys) in `compute_dtype`;
-    no output_size argument."""
+    no output_size argument. With kernel = stride and no padding (the
+    RPN's deblocks) a band of rows maps onto a band: no halo."""
 
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
                  **kwargs):
@@ -79,6 +137,24 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             x.to(dt), self.weight.to(dt),
             None if self.bias is None else self.bias.to(dt), self.stride,
             self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class BandPad2d(nn.ZeroPad2d):
+    """nn.ZeroPad2d(pad) before an unpadded conv of `kernel` rows at
+    `stride` (the RPN's stem). Banded, its rows are the halo that conv
+    reads (`band_halo`), its columns zeros."""
+    space = None
+    banded = False
+
+    def __init__(self, pad: int, kernel: int = 3, stride: int = 1):
+        super().__init__(pad)
+        self.halo = band_halo(kernel, stride, pad)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.banded:
+            return super().forward(x)
+        left, right = self.padding[:2]
+        return F.pad(halo_rows(x, *self.halo, self.space), (left, right))
 
 
 class SplitInputConv2d(Conv2d):
@@ -95,13 +171,14 @@ class SplitInputConv2d(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.in_channels <= self.MAX_CIN or self.groups != 1:
             return super().forward(x)
-        x, w = self.cast(x), self.cast(self.weight)
+        (x, pad, crop), w = self.rows(self.cast(x)), self.cast(self.weight)
         out = None
         for c0 in range(0, self.in_channels, self.MAX_CIN):
             y = F.conv2d(x[:, c0:c0 + self.MAX_CIN],
                          w[:, c0:c0 + self.MAX_CIN], None,
-                         self.stride, self.padding, self.dilation)
+                         self.stride, pad, self.dilation)
             out = y if out is None else out + y
+        out = self.crop(out, crop)
         return (out if self.bias is None
                 else out + self.cast(self.bias)[:, None, None])
 
@@ -121,7 +198,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     the ranks (`parallel/collectives.py::pmean`, differentiable, the JAX
     `axis_name`), var = max(0, E[x^2] - E[x]^2), then (x - mean) *
     (rsqrt(var + eps) * weight) + bias in fp32, whose gradient reaches a
-    bf16 x rounded to bf16, as jnp's promotion does."""
+    bf16 x rounded to bf16, as jnp's promotion does. Banded, E[x] and
+    E[x^2] are the space group's sums of x and x^2 over its summed count
+    (bands differ in rows), then averaged over the data group, as XLA
+    takes them over the global batch: each data index holds as many
+    rows. `flax_stats` (a class switch) takes flax's formula in every
+    training step, so that a single-process step can be held to a
+    data-parallel or banded one by their order of additions alone."""
+    space = None
+    banded = False
+    flax_stats = False
 
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
                  **kwargs):
@@ -130,15 +216,26 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and (self.compute_dtype is not None
-                              or world_size() > 1):
+                              or self.flax_stats or world_size() > 1):
             return self._flax_train(x)
         y = self._normalize(x.to(self.weight.dtype))
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
+    def _moments(self, xf: torch.Tensor):
+        """(E[x], E[x^2]) per channel over the batch of every rank."""
+        sq = torch.square(xf)
+        if not self.banded:
+            return pmean(xf.mean((0, 2, 3)), sq.mean((0, 2, 3)),
+                         group=None if self.space is None
+                         else self.space.data)
+        n = xf.new_tensor([xf.numel() // xf.shape[1]])
+        s1, s2, n = psum(xf.sum((0, 2, 3)), sq.sum((0, 2, 3)), n,
+                         group=self.space.space)
+        return pmean(s1 / n, s2 / n, group=self.space.data)
+
     def _flax_train(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(self.weight.dtype)
-        mean, mean2 = pmean(xf.mean((0, 2, 3)),
-                            torch.square(xf).mean((0, 2, 3)))
+        mean, mean2 = self._moments(xf)
         var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
@@ -199,6 +296,20 @@ class DeconvBNReLU(nn.Sequential):
             BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM,
                         compute_dtype=compute_dtype),
             nn.ReLU())
+
+
+BAND_AWARE = (Conv2d, BandPad2d, BatchNorm2d)
+
+
+def lay_out_rows_(module: nn.Module, space, banded: bool) -> None:
+    """Give every band-aware layer of `module` the space layout `space`:
+    `banded` for the layers after the canvas's band is cut, not for the
+    prefix that every rank of a space group runs whole."""
+    from .readers import MaskedBatchNorm
+    for m in module.modules():
+        if isinstance(m, BAND_AWARE + (MaskedBatchNorm,)):
+            m.space = space
+            m.banded = banded and not isinstance(m, MaskedBatchNorm)
 
 
 def _fan_in(m: nn.Module) -> int:

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.voxelize import PointVoxelMap
-from ..parallel.collectives import pmean
+from ..parallel.collectives import pmean, psum
 from .layers import BN_EPS, BN_MOMENTUM
 
 
@@ -49,7 +49,17 @@ class MaskedBatchNorm(nn.Module):
     do. In a data-parallel run each rank's mean and variance (around its
     own mean) are then averaged over the ranks, differentiably
     (`parallel/collectives.py::pmean`), as the JAX `axis_name` pmean
-    does; every rank holds the same number of samples."""
+    does; every rank holds the same number of samples.
+
+    Under a space layout (`space`, `parallel/mesh.py::SpaceGroup`) this
+    BatchNorm runs in the prefix before the canvas, whole on every rank of
+    a space group, and its reductions go over the data group alone: the
+    per-sample statistics are averaged over it as above, and the pooled
+    ones are those of the rows of every data index together (sums of
+    x, of the count and of (x - mean)^2 over the data group), as XLA
+    computes the JAX reader's over the global batch of the GSPMD step."""
+    space = None
+    banded = False
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -79,8 +89,13 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             # a data-parallel run averages them over the ranks, the JAX
             # pmean over ("batch", "data")
-            mean, var = pmean(*self._batch_stats(x, valid, sample,
-                                                 num_samples))
+            if self.space is not None and sample is None:
+                mean, var = self._pooled_stats(x, valid, self.space.data)
+            else:
+                mean, var = pmean(*self._batch_stats(x, valid, sample,
+                                                     num_samples),
+                                  group=None if self.space is None
+                                  else self.space.data)
             keep = 1.0 - self.momentum
             run_mean = keep * self.running_mean + self.momentum * mean
             run_var = keep * self.running_var + self.momentum * var
@@ -98,6 +113,19 @@ class MaskedBatchNorm(nn.Module):
                   var: torch.Tensor) -> torch.Tensor:
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+    @staticmethod
+    def _pooled_stats(x, valid, group):
+        """The mean and biased variance of the valid rows of every rank of
+        `group` together, differentiable."""
+        w = (x.new_ones(x.shape[0]) if valid is None
+             else valid.to(x.dtype))
+        s, n = psum((x * w[:, None]).sum(0), w.sum()[None], group=group)
+        cnt = torch.clamp_min(n, 1.0)
+        mean = s / cnt
+        ss, = psum((torch.square(x - mean) * w[:, None]).sum(0),
+                   group=group)
+        return mean, ss / cnt
 
     @staticmethod
     def _batch_stats(x, valid, sample, num_samples):

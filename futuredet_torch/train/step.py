@@ -18,8 +18,21 @@ collectives.py::pmean`, with gradient), the gradients are averaged in one
 all-reduce before the clip (`average_gradients_`), and the losses that the
 step returns are rank means, as the JAX `pmean`s of grads and losses. The
 same gradients on every rank give the same update, and the averaged
-statistics the same running statistics. The `space` axis is not ported
-(ROADMAP.md, queue 1: spatial sharding).
+statistics the same running statistics.
+
+Spatial sharding (`--space`, the JAX `_make_train_step_gspmd`,
+`futuredet_tpu/train/step.py:179-233`): a model built with a
+`parallel/mesh.py::SpaceGroup` holds a band of the canvas on each rank of
+a space group, which all read the same batch. The step's semantics are
+the GSPMD step's, global: the BatchNorms take the global batch's
+statistics (`models/layers.py`, `models/readers.py`), and the loss is
+normalised per sample, then averaged over the batch, as the JAX step's
+`jax.vmap` of `center_head_loss` (`:197-206`; at a batch of one this is
+`forward_backward`'s loss). Every rank computes that loss on the
+gathered head maps, its backward reaches only its band, so the gradient
+is the sum over the space group and the mean over the data group
+(`average_gradients_`). The clip, AdamW, `grad_norm` and the rank-mean
+losses are those of the data-parallel step.
 
 A two-stage model (`models/two_stage.py`) adds the RoI head's loss and
 trains only `two_stage_trainable_mask`'s parameters, as the JAX
@@ -117,17 +130,33 @@ def clip_by_global_norm(grads: List[torch.Tensor],
     return norm
 
 
+def per_sample_loss(cfg: ExperimentConfig, preds, targets
+                    ) -> Dict[str, torch.Tensor]:
+    """The head mode's losses of each sample alone, averaged over the
+    batch (the JAX GSPMD step's `jax.vmap` of `center_head_loss`,
+    futuredet_tpu/train/step.py:197-206)."""
+    B = targets["hm"].shape[0]
+    each = [center_head_loss(cfg.model.head,
+                             [{k: v[i:i + 1] for k, v in task.items()}
+                              for task in preds],
+                             {k: v[i:i + 1] for k, v in targets.items()})
+            for i in range(B)]
+    return {k: torch.stack([e[k] for e in each]).mean(0) for k in each[0]}
+
+
 def forward_backward(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
     """Targets from batch["targets_raw"] on the device, the forward in the
     model's mode (with batch["bev_map"] for a bev_map config), the head
     mode's loss (plus the RoI head's, roi_cls_loss and roi_reg_loss, for a
-    two-stage model: JAX step.py:123-135) and its backward into `.grad`.
-    Returns the losses."""
+    two-stage model: JAX step.py:123-135; per sample under a space layout)
+    and its backward into `.grad`. Returns the losses."""
     cfg = model.cfg
     targets = build_targets_batch(cfg, batch["targets_raw"])
     out = model(batch["points"], batch["points_valid"],
                 batch.get("bev_map"))
-    if cfg.model.two_stage_refine:
+    if getattr(model, "space", None) is not None:
+        losses = per_sample_loss(cfg, out, targets)
+    elif cfg.model.two_stage_refine:
         from ..models.two_stage import two_stage_loss
         preds, det, roi = out
         losses = center_head_loss(cfg.model.head, preds, targets)
@@ -168,7 +197,8 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     updates done before this one. Returns {loss, hm_loss, loc_loss,
     grad_norm}, and roi_cls_loss and roi_reg_loss for a two-stage model,
     as tensors on the device; in a data-parallel run the losses are the
-    means over the ranks and the gradients those averaged over them."""
+    means over the ranks and the gradients those averaged over them
+    (summed over a space group's bands)."""
     if not model.training:
         raise ValueError("train_step needs the model in train mode "
                          "(model.train()): eval BatchNorm would not learn "
@@ -176,7 +206,8 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     # every gradient, the frozen ones too: the grad_norm metric reads them
     model.zero_grad(set_to_none=True)
     losses = forward_backward(model, batch)
-    average_gradients_(list(model.parameters()))
+    average_gradients_(list(model.parameters()),
+                       getattr(model, "space", None))
     grad_norm = apply_update(model, optimizer, step)
     keys = list(losses)
     means = pmean(*(losses[k].detach() for k in keys))

@@ -27,7 +27,11 @@ Data parallel: in a `torch.distributed` process group
 loop on its own batches from the same seeded init; the step averages the
 statistics and gradients over the ranks, so the models stay equal, the
 logged losses are rank means, and rank 0 alone writes checkpoints (every
-rank reads one to resume).
+rank reads one to resume). With `n_space` > 1 (the JAX trainer's
+`n_space`, futuredet_tpu/train/trainer.py:116-138) the ranks form the
+(data, space) layout of `parallel/mesh.py::make_space_group`: the ranks
+of a space group take the same batches, each holding a band of the
+canvas (`train/step.py`).
 """
 from __future__ import annotations
 
@@ -151,7 +155,7 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
           steps_per_epoch: int, work_dir: Optional[str] = None,
           resume: bool = False, hooks: Optional[List[Hook]] = None,
           val_fn: Optional[Callable[[TrainState], Dict]] = None,
-          device=None, prefetch_depth: int = 2,
+          device=None, prefetch_depth: int = 2, n_space: int = 1,
           init_transform: Optional[Callable[[TrainState],
                                             TrainState]] = None,
           log_fn: Callable[[str], None] = log.info) -> TrainState:
@@ -167,10 +171,16 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
     autograd, and its dict is logged. `init_transform(state)`, if given,
     runs after the build and before a resume or any step (e.g. grafting a
     trained first stage into a two-stage model, JAX trainer.py:140-145).
-    Returns the state after the last step taken."""
+    `n_space` > 1 shards the canvas's rows over space groups of that many
+    ranks of the process group. Returns the state after the last step
+    taken."""
+    from ..models.detector import lay_out_space_
+    from ..parallel.mesh import make_space_group
     total_steps = steps_per_epoch * cfg.train.total_epochs
     dev = resolve_device(device)
-    model = build_detector(cfg, device=dev, seed=cfg.train.seed).train()
+    model = lay_out_space_(build_detector(cfg, device=dev,
+                                          seed=cfg.train.seed),
+                           make_space_group(n_space)).train()
     state = TrainState(0, model, make_optimizer(cfg, model, total_steps))
     if init_transform is not None:
         state = init_transform(state)

@@ -2,6 +2,7 @@
 card-against-CPU detection matcher at near ties, K1's pair counts and
 bound, and K2's two bounds; and its training phases (10-16) rehearsed on
 the CPU at small configs, with K2 replaced by a counting plain version."""
+import copy
 import os
 import sys
 import types
@@ -225,6 +226,50 @@ def test_grad_ratios():
     got["z"] = torch.tensor([0.0, 1e-3])
     with pytest.raises(RuntimeError, match="zero up to rounding"):
         cs.grad_ratios(got, want)
+
+
+def test_relu_decisions_replay_the_card_run_into_the_reference():
+    """The reference run takes the recorded run's ReLU decisions, call by
+    call: an input at its tie whose sign the two runs take differently
+    passes (and takes gradient) as recorded, and is listed with its
+    margin; a decision that differs away from its tie fails."""
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(4, 6), torch.nn.ReLU(),
+                              torch.nn.Linear(6, 1))
+    x = torch.randn(5, 4)
+    relus = cs.ReluDecisions()
+    relus.record(net)
+    pre = net[0](x).detach()
+    net(x).sum().backward()
+    relus.remove()
+    card = [p.grad.clone() for p in net.parameters()]
+    # the reference: one ReLU input moved across 0 to 1e-6 of the layer's
+    # max (the other inputs of its channel move with it)
+    ref = copy.deepcopy(net).double()
+    i, j = (pre.abs() == pre.abs().min()).nonzero()[0].tolist()
+    with torch.no_grad():
+        ref[0].bias[j] -= float(pre[i, j]) + float(torch.sign(pre[i, j])
+                                                   * 1e-6 * pre.abs().max())
+    plain = copy.deepcopy(ref)
+    plain.zero_grad()
+    plain(x.double()).sum().backward()
+    ref.zero_grad()
+    relus.replay(ref)
+    ref(x.double()).sum().backward()
+    relus.remove()
+    assert len(relus.flips) == 1 and relus.flips[0]["count"] == 1
+    assert relus.flips[0]["layer"] == "1"
+    assert relus.flips[0]["margin"] < cs.RELU_TIE_RTOL
+    assert not relus.masks["1"]
+    # the first layer's weight gradient flows where the card's ReLUs let it:
+    # as the card's with the decisions replayed, a row off without
+    assert torch.allclose(ref[0].weight.grad.float(), card[0], atol=1e-6)
+    assert (plain[0].weight.grad.float() - card[0])[j].abs().max() > 1e-3
+    # a second replay has no decision left to take
+    relus.replay(ref)
+    with pytest.raises(RuntimeError, match="no card decision"):
+        ref(x.double())
+    relus.remove()
 
 
 def test_state_equal():

@@ -245,9 +245,11 @@ def load_reference_two_stage(argv):
 
 
 @pytest.mark.parametrize("main,extra,item", [
-    (evaluate.main, ["--space", "2"], "spatial sharding"),
+    (evaluate.main, ["--model", "forecast_n3dtf_two_stage", "--space", "2"],
+     "spatial sharding"),
     (load_reference_two_stage, ["reference.pth"], "long tail"),
-    (train.main, ["--space", "2"], "spatial sharding"),
+    (train.main, ["--model", "forecast_n3dtf_two_stage", "--space", "2"],
+     "spatial sharding"),
 ])
 def test_unported_flags_raise_naming_their_roadmap_item(main, extra, item):
     base = {evaluate.main: EVAL_ARGS, train.main: TRAIN_ARGS}.get(main, [])

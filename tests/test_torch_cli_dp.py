@@ -120,8 +120,8 @@ def test_autoscale_lr_scales_by_the_world_size(monkeypatch):
     monkeypatch.setattr(mesh, "world_size", lambda: 4)
     assert train.train_config(cfg, args, mesh.data_axis_size()) \
         .train.optim.lr_max == 4 * base
-    with pytest.raises(NotImplementedError, match="spatial sharding"):
-        mesh.data_axis_size(2)
+    # two ranks a space group leave two data ranks
+    assert mesh.data_axis_size(2) == 2
 
 
 @pytest.mark.parametrize("kw,match", [
