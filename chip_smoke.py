@@ -8,10 +8,11 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, one JSON line each (several for some):
 
   1. device and build: card name and power limit, then the CUDA kernels of
-     futuredet_torch/csrc (K1 nms_kernel.cu, K2 gather_conv_kernel.cu) and
-     the metric engine's host C++ matcher (host_accumulate.cpp, g++) built
-     at once into build/torch_kernels/, with ptxas's lines for each kernel;
-     no K1 or K2 function may spill registers.
+     futuredet_torch/csrc (K1 nms_kernel.cu, K2 gather_conv_kernel.cu and
+     its bf16 family gather_conv_bf16_kernel.cu) and the metric engine's
+     host C++ matcher (host_accumulate.cpp, g++) built at once into
+     build/torch_kernels/, with ptxas's lines for each kernel; no K1 or K2
+     function may spill registers.
 
   The pillar path, pp_forecast_n3dtf:
   2. main path: full width (150k points, 512x512 canvas, RPN (64,128,256) x
@@ -244,7 +245,8 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       max(1, max|plain|), bit-identical launch to launch): ms a scene, the
       plain version's, the stacked bf16 index_select + addmm into fp32
       (library_ms), the bound at the bf16 tensor-core rate and at the
-      bytes of bf16 rows and weights.
+      bytes of bf16 rows and weights, and the sub-path each conv takes
+      (plan: W resident or streamed, the site tile, 16- or 2-byte rows).
   30. each serving knob beside its fp32 config on phase 8's uniform_blobs
       scene (VoxelNet) or phase 4's uniform scene (pillars), seeded
       weights: (a) compute_dtype and middle_sparse_dtype bfloat16, (b)
@@ -3733,9 +3735,13 @@ def serving_path(dev, card):
                                       for a in recorded),
           f"{len(recorded)} bf16 convs recorded")
     convs, k2_err = [], 0.0
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else pallas_gather.H100_SMS)
     for i, args in enumerate(recorded):
         line, ok, err = k2_compare(*args)
         line["conv"] = i
+        line["plan"] = pallas_gather.k2_bf16_plan(
+            line["cin"], line["cout"], line["N"], sms)
         line["bit_identical"] = bool(torch.equal(k2(*args), k2(*args)))
         check(ok and line["bit_identical"],
               f"K2's bf16 family on conv {i}: {line}")
@@ -4989,8 +4995,10 @@ def main() -> int:
                     or "spill" in ln]
              for name in secs}
     check(set(secs) >= {"nms_kernel.cu", "gather_conv_kernel.cu",
+                        "gather_conv_bf16_kernel.cu",
                         "host_accumulate.cpp"}, f"built {sorted(secs)}")
-    spills = [ln for name in ("nms_kernel.cu", "gather_conv_kernel.cu")
+    spills = [ln for name in ("nms_kernel.cu", "gather_conv_kernel.cu",
+                              "gather_conv_bf16_kernel.cu")
               for ln in ptxas[name] if re.search(r"[1-9]\d* bytes spill", ln)]
     check(not spills, f"K1 or K2 spills registers: {spills}")
     emit({"phase": "device_build", "device": torch.cuda.get_device_name(0),
@@ -5090,7 +5098,7 @@ def main() -> int:
             "k2_dx_tc_bound_ms", "dw_db_bound_ms")}}, {
         "name": "K2 sparse gather-conv, bf16 family",
         "route": "cuda",
-        "source": "futuredet_torch/csrc/gather_conv_kernel.cu",
+        "source": "futuredet_torch/csrc/gather_conv_bf16_kernel.cu",
         "replaces": "futuredet_tpu/ops/pallas_gather.py:49",
         "launches": sum(v["k2_bf16"] for v in {**serving["paths"],
                                                 **bf16_train}.values()),

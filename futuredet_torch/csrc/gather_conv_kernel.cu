@@ -13,9 +13,10 @@
 // gather rows cheaply; a GPU can, so this kernel gathers the rows it needs
 // directly and keeps none of the window, packing or overflow machinery.
 //
-// Two families, picked per call by Cin and Cout (route_of; the wrapper's
-// futuredet_torch/ops/pallas_gather.py::k2_route names the same); each
-// call is one launch.
+// Two fp32 families, picked per call by Cin and Cout (route_of; the
+// wrapper's futuredet_torch/ops/pallas_gather.py::k2_route names the same);
+// each call is one launch. The bf16 family (bf16 x and W, the JAX
+// kernel's serving mode) is gather_conv_bf16_kernel.cu.
 //
 // narrow (Cin <= 16, Cout <= 32: conv_input 5->16, stage-0 16->16, down1
 // 16->32). Few operations per byte: a row is 20-64 B. All 27 taps of W
@@ -47,22 +48,6 @@
 // tap are zeros multiplied, as in spconv's implicit GEMM. Rows are padded
 // (A: 36 floats, B: Cout + 8 or + 16) so fragment reads hit 32 banks.
 //
-// bf16 (bf16 x and W, any Cin; the serving mode of the JAX kernel, whose
-// compute_dtype bfloat16 rounds x and W to bf16 and sums the products in
-// fp32: middle_gather_algo="window_bf16", middle_sparse_dtype="bfloat16").
-// The wide family's shape over bf16: a block owns 64 output sites and all
-// Cout columns, each warp a 32 x min(Cout, 64) tile, the tile's index
-// block and tap mask in shared memory; it walks (present tap, 32-channel
-// chunk) steps through a 3-stage ring. A row is half the bytes of an fp32
-// one: cp.async gathers 16 B (8 channels) a copy where Cin % 8 == 0, and
-// plain loads and stores fill the chunk otherwise (Cin = 5); channels past
-// Cin are zeros, so Cin needs no padding in device memory. Each chunk is
-// two mma.sync m16n8k16 bf16 -> fp32 (one where its upper 16 channels are
-// all past Cin), into a fresh partial added to the fp32 sums, as in the
-// wide family. A bf16 x bf16 product is exact in fp32, so the kernel and
-// its plain version (bf16 rows, fp32 products and sums) differ only in the
-// order of the sums.
-//
 // All families add the bias once and store each output once, owned by one
 // thread and summed in a fixed order: no atomics, and relaunches are
 // bit-identical.
@@ -70,17 +55,14 @@
 // Tests: tests/test_torch_cuda.py holds every family against the plain
 // version on a card (python -m pytest --noconftest -m cuda
 // tests/test_torch_cuda.py); tests/test_torch_gather_conv.py checks the
-// route and the 3xTF32 arithmetic in numpy on the CPU,
-// tests/test_torch_bf16.py the bf16 plain version against the JAX one.
+// route and the 3xTF32 arithmetic in numpy on the CPU.
 //
 // Bound on the H100 (3.35 TB/s; 67 TFLOP/s fp32 without tensor cores,
 // 495 TFLOP/s dense TF32, so 165 for 3xTF32): bytes = V*Cin*4 +
 // 27*N*4 (table) + 27*Cin*Cout*4 + N*Cout*4 read or written once;
 // operations = 2 * present (k, n) pairs * Cin * Cout. chip_smoke.py
 // computes both per conv, at the fp32 rate (bound_ms) and, for the wide
-// family, at the 3xTF32 rate (tc_bound_ms); for the bf16 family the bytes
-// count 2-byte x and W and the operations go at the 989 TFLOP/s bf16 rate.
-// What holds each family back on
+// family, at the 3xTF32 rate (tc_bound_ms). What holds each family back on
 // the card is in PERF.md: the narrow one issues FMAs and
 // shared-memory broadcasts, the wide one is bound by its gather and W
 // stream more than by the tensor cores, which mma.sync drives at about
@@ -556,229 +538,6 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// -------------------------------------------------------------------- bf16
-
-constexpr int kBfChunk = 32;             // input channels a step (2 x k16)
-constexpr int kBfAStride = kBfChunk + 8;  // 40 bf16 = 20 words: 20g + t
-                                          // spans 32 banks
-
-__host__ __device__ constexpr bool bf16_takes(int cin, int cout) {
-  return cin >= 1 &&
-         (cout == 8 || cout == 16 || cout == 32 || cout == 64 || cout == 128);
-}
-
-template <int COUT>
-struct Bf16 {
-  static constexpr int BM = 64;
-  static constexpr int WN = COUT < 64 ? COUT : 64;   // warp tile 32 x WN
-  static constexpr int WARPS_M = BM / 32;
-  static constexpr int WARPS_N = COUT / WN;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int NT = WN / 8;                  // n8 tiles per warp
-  static constexpr int STAGES = 3;
-  static constexpr int BS = COUT + 8;   // W tile row stride, in bf16
-  static constexpr int A_ELEMS = BM * kBfAStride;
-  static constexpr int B_ELEMS = kBfChunk * BS;
-  static constexpr size_t SMEM =
-      sizeof(int) * (kTaps * BM + 8) +
-      sizeof(uint16_t) * STAGES * (A_ELEMS + B_ELEMS);
-  static_assert(BS % 8 == 0 && (kTaps * BM + 8) % 4 == 0, "16 B rows");
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int COUT>
-__global__ void __launch_bounds__(Bf16<COUT>::THREADS)
-bf16_kernel(const uint16_t* __restrict__ x, const int32_t* __restrict__ table,
-            const uint16_t* __restrict__ w, const float* __restrict__ bias,
-            float* __restrict__ out, int V, int N, int cin) {
-  using L = Bf16<COUT>;
-  constexpr int BM = L::BM;
-  extern __shared__ __align__(16) int smem[];
-  int* s_idx = smem;                          // [27][BM], -1 = absent
-  unsigned* s_wmask = reinterpret_cast<unsigned*>(smem + kTaps * BM);
-  uint16_t* s_a = reinterpret_cast<uint16_t*>(smem + kTaps * BM + 8);
-  uint16_t* s_b = s_a + L::STAGES * L::A_ELEMS;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % L::WARPS_M, wn = warp / L::WARPS_M;
-  const int n0 = blockIdx.x * BM;
-
-  // the tile's index block, once, and the mask of taps some site has
-  unsigned present = 0;
-  for (int e = tid; e < kTaps * BM; e += L::THREADS) {
-    const int k = e / BM, n = n0 + e % BM;
-    int v = n < N ? __ldg(table + (size_t)k * N + n) : -1;
-    v = (unsigned)v < (unsigned)V ? v : -1;
-    s_idx[e] = v;
-    present |= (v >= 0 ? 1u : 0u) << k;
-  }
-  present = __reduce_or_sync(kFull, present);
-  if (lane == 0) s_wmask[warp] = present;
-  __syncthreads();
-  unsigned mask = 0;
-#pragma unroll
-  for (int i = 0; i < L::THREADS / 32; ++i) mask |= s_wmask[i];
-
-  const int nchunks = (cin + kBfChunk - 1) / kBfChunk;
-  const int steps = __popc(mask) * nchunks;
-  const bool vec = cin % 8 == 0;   // rows of 16 B pieces, 16 B aligned
-
-  // producer cursor over (present tap, chunk), in order
-  unsigned ld_mask = mask;
-  int ld_k = mask ? __ffs(mask) - 1 : 0, ld_c = 0;
-  auto load_step = [&](int slot) {
-    uint16_t* sa = s_a + slot * L::A_ELEMS;
-    uint16_t* sb = s_b + slot * L::B_ELEMS;
-    const int c0 = ld_c * kBfChunk;
-    const int* ik = s_idx + ld_k * BM;
-    if (vec) {
-      for (int e = tid; e < BM * (kBfChunk / 8); e += L::THREADS) {
-        const int r = e / (kBfChunk / 8), ch = c0 + (e % (kBfChunk / 8)) * 8;
-        const int v = ik[r];
-        const bool ok = v >= 0 && ch < cin;
-        cp_async16(sa + r * kBfAStride + (ch - c0),
-                   ok ? x + (size_t)v * cin + ch : x, ok);
-      }
-    } else {
-      // the slot's last reader finished before this step's barrier
-      for (int e = tid; e < BM * kBfChunk; e += L::THREADS) {
-        const int r = e / kBfChunk, c = e % kBfChunk;
-        const int v = ik[r];
-        sa[r * kBfAStride + c] =
-            v >= 0 && c0 + c < cin ? __ldg(x + (size_t)v * cin + c0 + c)
-                                   : (uint16_t)0;
-      }
-    }
-    for (int e = tid; e < kBfChunk * (COUT / 8); e += L::THREADS) {
-      const int kk = e / (COUT / 8), j = (e % (COUT / 8)) * 8;
-      const bool ok = c0 + kk < cin;
-      cp_async16(sb + kk * L::BS + j,
-                 ok ? w + ((size_t)ld_k * cin + c0 + kk) * COUT + j : w, ok);
-    }
-    if (++ld_c == nchunks) {
-      ld_c = 0;
-      ld_mask &= ld_mask - 1;
-      ld_k = ld_mask ? __ffs(ld_mask) - 1 : 0;
-    }
-  };
-
-  float acc[2][L::NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < L::NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < L::STAGES - 1; ++s) {
-    if (s < steps) load_step(s);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int it = 0; it < steps; ++it) {
-    cp_async_wait<L::STAGES - 2>();   // step it has landed (this thread)
-    __syncthreads();                  // ... for every thread; it-1 done
-    if (it + L::STAGES - 1 < steps)
-      load_step((it + L::STAGES - 1) % L::STAGES);
-    cp_async_commit();
-
-    const int slot = it % L::STAGES;
-    // A fragment: rows g, g+8 of the warp's 16-row tile, channels 2t, 2t+1
-    // (+8); B fragment: channels 2t, 2t+1 (+8) of column g
-    const uint16_t* sa =
-        s_a + slot * L::A_ELEMS + (wm * 32 + g) * kBfAStride + 2 * t;
-    const uint16_t* sb = s_b + slot * L::B_ELEMS + 2 * t * L::BS +
-                         wn * L::WN + g;
-    // the chunk's upper 16 channels hold only zeros past Cin
-    const int halves = (it % nchunks) * kBfChunk + 16 < cin ? 2 : 1;
-    float part[2][L::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < L::NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      if (ks >= halves) break;
-      uint32_t b[L::NT][2];
-#pragma unroll
-      for (int nt = 0; nt < L::NT; ++nt) {
-        const uint16_t* p = sb + ks * 16 * L::BS + nt * 8;
-        b[nt][0] = pack_bf16(p[0], p[L::BS]);
-        b[nt][1] = pack_bf16(p[8 * L::BS], p[9 * L::BS]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint16_t* p = sa + mt * 16 * kBfAStride + ks * 16;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(p);
-        a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * kBfAStride);
-        a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * kBfAStride + 8);
-#pragma unroll
-        for (int nt = 0; nt < L::NT; ++nt) mma_bf16(part[mt][nt], a, b[nt]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < L::NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
-  }
-
-  // epilogue: c0, c1 at (row g, cols 2t, 2t+1), c2, c3 at row g+8
-#pragma unroll
-  for (int nt = 0; nt < L::NT; ++nt) {
-    const int col = wn * L::WN + nt * 8 + 2 * t;
-    const float b0 = bias != nullptr ? __ldg(bias + col) : 0.f;
-    const float b1 = bias != nullptr ? __ldg(bias + col + 1) : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = n0 + wm * 32 + mt * 16 + g + 8 * h;
-        if (n >= N) continue;
-        float2 f = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-        if (bias != nullptr) {
-          f.x += b0;
-          f.y += b1;
-        }
-        *reinterpret_cast<float2*>(out + (size_t)n * COUT + col) = f;
-      }
-  }
-}
-
-template <int COUT>
-cudaError_t launch_bf16(const uint16_t* x, const int32_t* table,
-                        const uint16_t* w, const float* bias, float* out,
-                        int V, int N, int cin, cudaStream_t stream) {
-  using L = Bf16<COUT>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      bf16_kernel<COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::SMEM);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((N + L::BM - 1) / L::BM);
-  bf16_kernel<COUT><<<grid, L::THREADS, L::SMEM, stream>>>(
-      x, table, w, bias, out, V, N, cin);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // C ABI for ctypes.
@@ -809,28 +568,4 @@ extern "C" int futuredet_gather_conv(const float* x, const int32_t* table,
                                         cout, s)
                    : dispatch_wide<64>(x, table, w, bias, out, V, N, cin,
                                        cout, s));
-}
-
-// x (V, Cin) and W (27, Cin, Cout) bf16 (raw 16-bit words), bias fp32 or
-// null, out (N, Cout) fp32. Returns a cudaError_t as futuredet_gather_conv.
-extern "C" int futuredet_gather_conv_bf16(const uint16_t* x,
-                                          const int32_t* table,
-                                          const uint16_t* w,
-                                          const float* bias, float* out,
-                                          int V, int N, int cin, int cout,
-                                          void* stream) {
-  if (N < 0 || V < 0 || !bf16_takes(cin, cout))
-    return (int)cudaErrorInvalidValue;
-  if (!aligned16(x) || !aligned16(w) || !aligned16(out))
-    return (int)cudaErrorMisalignedAddress;
-  if (N == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cout) {
-    case 8: return (int)launch_bf16<8>(x, table, w, bias, out, V, N, cin, s);
-    case 16: return (int)launch_bf16<16>(x, table, w, bias, out, V, N, cin, s);
-    case 32: return (int)launch_bf16<32>(x, table, w, bias, out, V, N, cin, s);
-    case 64: return (int)launch_bf16<64>(x, table, w, bias, out, V, N, cin, s);
-    default:
-      return (int)launch_bf16<128>(x, table, w, bias, out, V, N, cin, s);
-  }
 }

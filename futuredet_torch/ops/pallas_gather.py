@@ -3,7 +3,9 @@
 Counterpart of `futuredet_tpu/ops/pallas_gather.py` (the Pallas `_kernel`
 behind `subm_conv_window`); the module keeps that name so the pair is easy
 to find, but the kernel here is CUDA C++ for Hopper,
-`csrc/gather_conv_kernel.cu` (design and bound in its header). Both compute
+`csrc/gather_conv_kernel.cu` (the fp32 families) and
+`csrc/gather_conv_bf16_kernel.cu` (the bf16 one; design and bound in
+each header). Both compute
 
     out[n] = bias + sum_k x[table[k, n]] @ W[k],   k = 0..26
 
@@ -26,11 +28,17 @@ bytes; fp32 FMAs, W in shared memory, one or two sites per thread) and
 cores in 3xTF32, which keeps fp32 accuracy). For bf16 features and
 weights, `bf16`: the JAX kernel's bf16 mode (`compute_dtype=bfloat16`,
 the serving mode of `window_bf16` and `middle_sparse_dtype="bfloat16"`),
-bf16 rows gathered and multiplied on the tensor cores, products summed
-in fp32, an fp32 output. Its plain version gathers the bf16 rows and
-multiplies them in fp32: a bf16 x bf16 product is exact in fp32, so the
-two differ only in the order of the sums. The C side picks by the same
-rule and refuses, through its return code, a shape that no family takes.
+an implicit GEMM on Hopper's warpgroup MMA (`wgmma`, bf16 -> fp32) over
+128-site tiles (64 where N is small), whose reduction runs over (tap,
+channel) K-slots packed eight to a 16-byte granule, several taps to a
+64-slot chunk where Cin < 64; one warpgroup gathers the rows with cp.async
+into a 4-stage ring while one or two warpgroups multiply, and W stays in
+shared memory where it fits, else comes a stage at a time by TMA
+(`k2_bf16_plan` names the sub-path a conv takes, `bf16_k_slots` the
+packing). Its plain version gathers the bf16 rows and multiplies them in
+fp32: a bf16 x bf16 product is exact in fp32, so the two differ only in
+the order of the sums. The C side picks by the same rule and refuses,
+through its return code, a shape that no family takes.
 
 The conv is the custom operator `torch.ops.futuredet.gather_conv`
 (`torch.library`): its CUDA implementation is the kernel's launch (all
@@ -55,10 +63,16 @@ from torch.utils.flop_counter import register_flop_formula
 from . import _build
 
 _SRC = "gather_conv_kernel.cu"
+_BF16_SRC = "gather_conv_bf16_kernel.cu"
 K_TAPS = 27
 # output widths the kernel is instantiated for (csrc/gather_conv_kernel.cu)
 COUTS = (8, 16, 32, 64, 128)
 ROUTES = ("narrow", "wide", "bf16")
+# the bf16 family's constants (csrc/gather_conv_bf16_kernel.cu: kChunk,
+# kStages, kProducers, kResidentBytes, kSmemMax) and the H100 SXM's SMs
+BF16_CHUNK, BF16_STAGES, BF16_PRODUCERS = 64, 4, 128
+BF16_RESIDENT_BYTES, BF16_SMEM_MAX = 131072, 232448
+H100_SMS = 132
 
 
 def k2_route(cin: int, cout: int, dtype: torch.dtype = torch.float32
@@ -66,8 +80,9 @@ def k2_route(cin: int, cout: int, dtype: torch.dtype = torch.float32
     """The kernel family that takes a (Cin, Cout) conv of `dtype` inputs:
     for fp32 "narrow" (Cin <= 16 and Cout <= 32: fp32 FMAs) or "wide" (Cin
     a multiple of 4 otherwise: 3xTF32 tensor-core implicit GEMM), for bf16
-    "bf16" (any Cin), by the rules of `route_of` / `bf16_takes` in
-    csrc/gather_conv_kernel.cu. Raises ValueError for a shape none
+    "bf16" (any Cin), by the rules of `route_of` in
+    csrc/gather_conv_kernel.cu and `bf16_takes` in
+    csrc/gather_conv_bf16_kernel.cu. Raises ValueError for a shape none
     takes."""
     if dtype == torch.bfloat16:
         if cout in COUTS and cin >= 1:
@@ -81,6 +96,49 @@ def k2_route(cin: int, cout: int, dtype: torch.dtype = torch.float32
             return "wide"
     raise ValueError(f"K2 takes Cout in {COUTS} with Cin <= 16 (Cout <= 32) "
                      f"or Cin a multiple of 4; got Cin={cin}, Cout={cout}")
+
+
+def bf16_k_slots(cin: int) -> tuple:
+    """The bf16 family's packed reduction: each tap takes Cin rounded up to
+    8 K-slots, the 27 taps' slots are cut into chunks of 64, the last one
+    zero-padded. Returns (tap, channel), two int64 tensors of chunks * 64
+    entries, -1 where the slot holds a zero (a channel past Cin, or past
+    the 27th tap), as `kslots` / `nchunks` / `stage_w` in
+    csrc/gather_conv_bf16_kernel.cu."""
+    cp = -(-cin // 8) * 8
+    chunks = -(-K_TAPS * cp // BF16_CHUNK)
+    s = torch.arange(chunks * BF16_CHUNK)
+    tap, ch = s // cp, s % cp
+    ok = (tap < K_TAPS) & (ch < cin)
+    return torch.where(ok, tap, -1), torch.where(ok, ch, -1)
+
+
+def k2_bf16_plan(cin: int, cout: int, n: int, sms: int = H100_SMS) -> dict:
+    """The sub-path the bf16 family takes for a (Cin, Cout) conv over N
+    output sites on a card of `sms` SMs, by the rules of
+    csrc/gather_conv_bf16_kernel.cu (`w_resident`, `bf16_tile`,
+    `bf16_smem`): W resident in shared memory where its packed chunks take
+    at most 128 KB, else streamed a chunk a stage (by TMA where the rows
+    are 16-byte granules, Cin % 8 == 0); 128-site tiles where N gives
+    every SM one, else 64; the block's threads (a consumer warpgroup per
+    64 sites, the copying warpgroup and a warp that publishes each stage)
+    and its shared memory in bytes. Raises ValueError for a shape the
+    family does not take."""
+    k2_route(cin, cout, torch.bfloat16)
+    cp = -(-cin // 8) * 8
+    chunks = -(-K_TAPS * cp // BF16_CHUNK)
+    w_bytes = chunks * BF16_CHUNK * cout * 2
+    resident = w_bytes <= BF16_RESIDENT_BYTES
+    tile = 128 if -(-n // 128) >= sms else 64
+    smem = (1024 + BF16_STAGES * tile * 128
+            + (chunks if resident else BF16_STAGES) * BF16_CHUNK * cout * 2
+            + 2 * K_TAPS * BF16_PRODUCERS * 4 + 2 * BF16_STAGES * 8
+            + BF16_STAGES * 4 + 8 * 4)
+    return {"k_slots_per_tap": cp, "chunks": chunks,
+            "w": "resident" if resident else "streamed", "w_bytes": w_bytes,
+            "tile": tile, "threads": 128 * (tile // 64) + BF16_PRODUCERS + 32,
+            "smem": smem,
+            "rows": "16B" if cin % 8 == 0 else "2B"}
 
 
 def gather_conv_plain(features: torch.Tensor, table: torch.Tensor,
@@ -154,9 +212,8 @@ def _gather_conv_cuda(features: Tensor, table: Tensor, weights: Tensor,
     out = torch.empty((N, cout), dtype=torch.float32, device=features.device)
     if N == 0:
         return out
-    lib = _build.load(_SRC)
-    fn = (lib.futuredet_gather_conv_bf16 if route == "bf16"
-          else lib.futuredet_gather_conv)
+    fn = (_build.load(_BF16_SRC).futuredet_gather_conv_bf16
+          if route == "bf16" else _build.load(_SRC).futuredet_gather_conv)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -636,6 +636,9 @@ def test_serving_phases_rehearse_on_the_cpu(serving_phases_on_the_cpu):
     assert all(c["max_abs_err"] == 0.0 and c["bit_identical"]
                for c in convs)
     assert convs[0]["cin"] == 5 and convs[-1]["cin"] == 64
+    assert all(c["plan"]["w"] in ("resident", "streamed")
+               and c["plan"]["rows"] == ("2B" if c["cin"] % 8 else "16B")
+               for c in convs)
     assert out["k2_bf16"]["bound_ms"] > 0
 
     del lines[:]

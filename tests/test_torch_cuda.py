@@ -429,10 +429,15 @@ def test_pillar_reader_trains_on_the_card_as_on_the_cpu():
     assert not gc["pfn_layers.0.norm.bias"][:3].any()
 
 
-# (V, N, Cin, Cout, share of absent entries) of K2's bf16 family: every
-# (Cin, Cout) of the voxelnet main path, Cin not a multiple of 8 (scalar
-# row loads) or of 16 and 32 (zero-padded chunks), N off the 64-site tile,
-# Cout = 8, and tiles whose sites have all 27 neighbours
+# (V, N, Cin, Cout, share of absent entries[, taps absent at every site])
+# of K2's bf16 family: every (Cin, Cout) of the voxelnet main path, Cin not
+# a multiple of 8 (2-byte row loads) or of 64 (several taps a 64-slot
+# chunk; a chunk that straddles two taps at Cin = 72), N off the 64- and
+# 128-site tiles (128 where N / 128 rounded up >= 132 SMs), Cout = 8 with
+# W resident and streamed, a packed chunk whose taps no site has,
+# persistent grids
+# with more than two tiles a block, tiles whose sites have all 27
+# neighbours, and W resident (<= 128 KB packed) or streamed
 K2_BF16_CASES = [
     (5000, 5000, 5, 16, 0.6), (4000, 4000, 16, 16, 0.6),
     (3000, 1111, 16, 32, 0.8), (3000, 3000, 32, 32, 0.6),
@@ -441,13 +446,31 @@ K2_BF16_CASES = [
     (1000, 1, 128, 128, 0.3), (2000, 65, 40, 64, 0.6),
     (700, 700, 24, 8, 0.6), (700, 129, 3, 32, 0.5),
     (5000, 128, 128, 128, 0.0), (5000, 256, 16, 32, 0.0),
+    # around the 64-site tile (small N) and the 128-site one (N > 16,768)
+    (3000, 127, 32, 32, 0.5), (3000, 128, 64, 64, 0.5),
+    (3000, 129, 16, 16, 0.5), (3000, 255, 128, 128, 0.5),
+    (9000, 17919, 32, 64, 0.6), (9000, 17920, 16, 16, 0.6),
+    (9000, 17921, 64, 128, 0.6),
+    # Cin = 8 (eight taps a chunk) and 16 (four), Cin = 12 (two granules a
+    # tap, the second half zeros), Cin = 72 (chunks straddling two taps)
+    (3000, 3000, 8, 32, 0.6), (3000, 20000, 16, 64, 0.6),
+    (1500, 1500, 12, 16, 0.5), (1000, 1500, 72, 64, 0.5),
+    # Cin = 5 with taps 8-15 (the second packed chunk) absent everywhere
+    (5000, 20000, 5, 16, 0.6, tuple(range(8, 16))),
+    # no neighbour at all: one chunk of zeros, the bias alone
+    (500, 300, 16, 32, 1.0),
+    # persistent grids: more than two tiles a block
+    (40000, 80000, 32, 32, 0.6), (35000, 35000, 128, 128, 0.55),
+    # Cout = 8: W resident (Cin = 16) and streamed (Cin = 1024)
+    (3000, 20000, 16, 8, 0.5), (500, 300, 1024, 8, 0.7),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,N,cin,cout,absent", K2_BF16_CASES)
-def test_k2_bf16_family_matches_plain_version_on_the_card(V, N, cin, cout,
-                                                          absent):
+@pytest.mark.parametrize(
+    "case", K2_BF16_CASES,
+    ids=lambda c: "-".join(map(str, c[:5])) + ("-dead" if c[5:] else ""))
+def test_k2_bf16_family_matches_plain_version_on_the_card(case):
     """The bf16 family against its plain version (bf16 rows, fp32 products
     and sums): 1e-5 of max(1, max|plain|), bit-identical when launched
     again, exactly the bias for a table with no neighbour, counted on its
@@ -457,8 +480,11 @@ def test_k2_bf16_family_matches_plain_version_on_the_card(V, N, cin, cout,
     from futuredet_torch.ops.pallas_gather import (gather_conv,
                                                    gather_conv_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
+    V, N, cin, cout, absent = case[:5]
     x, tab, w, b = k2_case(np.random.default_rng(V + N + cin), V, N, cin,
                            cout, absent)
+    if len(case) > 5:
+        tab[list(case[5])] = V
     x, w = x.bfloat16(), w.bfloat16()
     before = dict(gather_conv.launches_by_route)
     got = gather_conv(x, tab, w, b)
