@@ -137,13 +137,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args, cfg) -> None:
-    """Flags whose paths the port does not have yet raise, naming their
-    ROADMAP.md item (the train CLI's rule)."""
-    from .train import refuse_unported as refuse
-    refuse(args, cfg)
-
-
 def synthetic_batches(cfg, n: int, batch_size: int, seed: int):
     """The JAX CLI's synthetic eval set: batches of `make_batch` scenes with
     lidar-statistics clutter, seeds seed + i, tokens syn{i}_{j}."""
@@ -241,7 +234,6 @@ def main(argv=None):
     cfg = get_config(args.model)
     if args.tiny:
         cfg = tiny_variant(cfg)
-    refuse_unported(args, cfg)
     n_proc = initialize_multihost(
         args.coordinator_address, args.num_processes, args.process_id,
         resolve_device(args.device) if args.coordinator_address else None)

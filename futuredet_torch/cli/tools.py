@@ -23,10 +23,11 @@ where a subcommand runs the model.
         --check
     # load: import futuredet_torch; torch.export.load(path).module()
 
-Every config exports with `circular_nms` off (the default of all of
-them): the VoxelNet stages' sizes, set per scene, are unbacked sizes of
-the program. With `circular_nms` the export raises NotImplementedError
-naming its ROADMAP.md item.
+Every config exports, under every knob (`export_config` takes a config
+that `dataclasses.replace` changed, e.g. `middle_dense_from_stage` or
+`circular_nms`): the VoxelNet stages' sizes, set per scene, are unbacked
+sizes of the program, and the circle NMS is the operator
+`torch.ops.futuredet.circle_nms`, one node a pseudo-task.
 """
 from __future__ import annotations
 
@@ -38,10 +39,6 @@ import pickle
 import numpy as np
 
 log = logging.getLogger(__name__)
-
-EXPORT_CIRCLE_NMS = (
-    "(ROADMAP.md, queue 1: long tail, export of the circle NMS)")
-
 
 def cmd_trajectory(args):
     """Per-class trajectory prototypes: (velocity, rotation) + future offsets
@@ -226,11 +223,6 @@ def inference_program(cfg, model):
     from ..eval.decode import decode_and_nms
     from ..models.two_stage import refined_detections
 
-    if cfg.test.circular_nms:
-        raise NotImplementedError(
-            "export with circular_nms: the circle NMS walks a Python loop "
-            f"over the finite scores of each scene {EXPORT_CIRCLE_NMS}")
-
     class Program(torch.nn.Module):
         def __init__(self):
             super().__init__()
@@ -247,34 +239,42 @@ def inference_program(cfg, model):
 
 
 def cmd_export(args):
-    """Export the model's forward + decode as a `torch.export` artifact
-    (`.pt2`), weights drawn from seed 0, on `cfg.voxel.max_points` zero
-    points a sample. With --check, load the artifact, run it once and
-    assert that its outputs equal the eager program's."""
-    import torch
-
+    """Export the model's forward + decode of the config `--model` (its
+    tiny variant under --tiny) as a `torch.export` artifact (`.pt2`):
+    `export_config`."""
     from ..config import get_config, tiny_variant
-    from ..models.detector import build_detector
 
     cfg = get_config(args.model)
     if args.tiny:
         cfg = tiny_variant(cfg)
-    model = build_detector(cfg, args.device, seed=0)
+    return export_config(cfg, args.out or f"{args.model}.pt2", args.device,
+                         batch_size=args.batch_size, check=args.check)
+
+
+def export_config(cfg, out: str, device="cuda", batch_size: int = 1,
+                  check: bool = False) -> str:
+    """Export the forward + decode of `cfg`'s detector, weights drawn from
+    seed 0, on `cfg.voxel.max_points` zero points a sample, to `out`. With
+    `check`, load the artifact, run it once and assert that its outputs
+    equal the eager program's. Returns `out`."""
+    import torch
+
+    from ..models.detector import build_detector
+
+    model = build_detector(cfg, device, seed=0)
     program = inference_program(cfg, model)
     dev = next(model.parameters()).device
     P = cfg.voxel.max_points
-    pts = torch.zeros((args.batch_size, P, 5), dtype=torch.float32,
-                      device=dev)
-    pv = torch.zeros((args.batch_size, P), dtype=torch.bool, device=dev)
+    pts = torch.zeros((batch_size, P, 5), dtype=torch.float32, device=dev)
+    pv = torch.zeros((batch_size, P), dtype=torch.bool, device=dev)
     # without autograd, as a server runs it (the sparse convs then skip
     # their autograd Function)
     with torch.no_grad():
         ep = torch.export.export(program, (pts, pv), strict=False)
-    out = args.out or f"{args.model}.pt2"
     torch.export.save(ep, out)
-    log.info("exported %s (%d bytes, device %s) to %s", args.model,
+    log.info("exported %s (%d bytes, device %s) to %s", cfg.name,
              os.path.getsize(out), dev, out)
-    if args.check:
+    if check:
         loaded = torch.export.load(out).module()
         with torch.no_grad():
             got = loaded(pts, pv)

@@ -57,8 +57,12 @@ on one device); on the CPU, gloo ranks with `--device cpu`:
       --device cpu --synthetic 4 --space 2 --num_processes 2 \
       --process_id R --coordinator_address 127.0.0.1:29500
 
-A two-stage config or `dcn_head` under `--space` raises, naming its
-ROADMAP.md item.
+Every config takes `--space`; a two-stage config's RoI stage runs whole on
+every rank of a space group, on the gathered maps:
+
+  python -m futuredet_torch.cli.train --model pp_forecast_n3dtf_two_stage \
+      --tiny --device cpu --synthetic 4 --space 2 --num_processes 2 \
+      --process_id R --coordinator_address 127.0.0.1:29500
 """
 from __future__ import annotations
 
@@ -133,14 +137,6 @@ def parse_args(argv=None):
                    help="torch device; cuda (the default) raises without a "
                         "card, cpu runs the plain PyTorch versions")
     return p.parse_args(argv)
-
-
-def refuse_unported(args, cfg) -> None:
-    """Flags whose paths the port does not have yet raise, naming their
-    ROADMAP.md item."""
-    if args.space > 1:
-        from ..models.detector import refuse_unbanded
-        refuse_unbanded(cfg)
 
 
 def train_config(cfg, args, n_devices: int = 1):
@@ -263,7 +259,6 @@ def main(argv=None):
     cfg = get_config(args.model)
     if args.tiny:
         cfg = tiny_variant(cfg)
-    refuse_unported(args, cfg)
     if args.first_stage_checkpoint and not cfg.model.two_stage_refine:
         raise SystemExit("--first_stage_checkpoint requires a *_two_stage "
                          "config")

@@ -34,6 +34,13 @@ and casts each head output back to fp32, so decode and NMS read fp32
 maps; `feats` stays in it. As in the JAX head, `bev_conv`, the two-stage
 shared convs and the whole DCNSepHead stay fp32, promoting their bf16
 input.
+
+Under a space layout (`models/detector.py::lay_out_space_`) every conv
+runs on its rank's band of rows (`models/layers.py`). A DCNSepHead's
+deformable convs sample anywhere: each gathers its input whole once
+(`parallel/collectives.py::gather_rows_summed`, whose backward sums the
+cotangent over the space group) and computes its band's output rows, with
+offsets from the 1x1 offset conv on the band.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from torch import nn
 
 from ..config import HeadConfig
 from ..ops.deform import deform_conv2d
+from ..parallel.collectives import gather_rows_summed
 from .layers import Conv2d, ConvBNReLU, conv_bn_relu
 
 Heads = Tuple[Tuple[str, Tuple[int, int]], ...]
@@ -129,9 +137,12 @@ class DeformConv2d(Conv2d):
         super().__init__(cin, cout, 3, padding=1, bias=False)
         self.deformable_groups = deformable_groups
 
-    def forward(self, x: torch.Tensor, offsets: torch.Tensor
-                ) -> torch.Tensor:
-        return deform_conv2d(x, offsets, self.weight, self.deformable_groups)
+    def forward(self, x: torch.Tensor, offsets: torch.Tensor,
+                row0: int = 0) -> torch.Tensor:
+        """x the whole input, offsets those of the output rows from
+        `row0` (`ops/deform.py::deform_conv2d`)."""
+        return deform_conv2d(x, offsets, self.weight, self.deformable_groups,
+                             row0)
 
 
 class FeatureAdaption(nn.Module):
@@ -149,8 +160,11 @@ class FeatureAdaption(nn.Module):
         self.conv_offset.weight.zero_()
         self.conv_offset.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.conv_adaption(x, self.conv_offset(x)))
+    def forward(self, x: torch.Tensor, whole=None) -> torch.Tensor:
+        """x, or under a space layout its band with `whole` = (the whole
+        input, the band's first row)."""
+        src, row0 = (x, 0) if whole is None else whole
+        return torch.relu(self.conv_adaption(src, self.conv_offset(x), row0))
 
 
 class DCNSepHead(nn.Module):
@@ -179,11 +193,19 @@ class DCNSepHead(nn.Module):
         self.feature_adapt_cls.reset_init()
         self.feature_adapt_reg.reset_init()
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, bands=None) -> Dict[str, torch.Tensor]:
+        """x (B, C, H, W), or under a space layout its rank's band, with
+        `bands` every rank's rows of the whole canvas."""
         # fp32 under compute_dtype too, as the JAX DCNSepHead
         x = x.to(self.cls_head[0].weight.dtype)
-        out = self.task_head(self.feature_adapt_reg(x))
-        out["hm"] = self.cls_head(self.feature_adapt_cls(x))
+        whole = None
+        space = self.feature_adapt_cls.conv_adaption.space
+        if self.feature_adapt_cls.conv_adaption.banded:
+            # both adaptions read the whole input: one gather for the two
+            whole = (gather_rows_summed(x, 2, bands, space),
+                     bands[space.index][0])
+        out = self.task_head(self.feature_adapt_reg(x, whole))
+        out["hm"] = self.cls_head(self.feature_adapt_cls(x, whole))
         return out
 
 
@@ -242,10 +264,12 @@ class CenterHead(nn.Module):
         for t in self.tasks:
             t.reset_init()
 
-    def forward(self, x: torch.Tensor, bev_map: Optional[torch.Tensor] = None
-                ) -> List[Dict[str, torch.Tensor]]:
+    def forward(self, x: torch.Tensor, bev_map: Optional[torch.Tensor] = None,
+                bands=None) -> List[Dict[str, torch.Tensor]]:
         """x (B, C, H, W), bev_map (B, H, W, 1) in canvas orientation (row =
         y bin) when the config has one -> per task a dict of (B, H, W, c)
+        maps. Under a space layout x and bev_map are this rank's band of
+        rows, `bands` every rank's (`SpaceGroup.bands`), and so are the
         maps."""
         x = self.shared_conv(x)
         if self.cfg.bev_map:
@@ -260,6 +284,7 @@ class CenterHead(nn.Module):
             inp = x
             if i != 0 and self.cfg.forecast_feature:
                 inp = torch.cat([x, rets[i - 1]["feats"]], dim=1)
-            rets.append(task(inp))
+            rets.append(task(inp, bands) if self.cfg.dcn_head
+                        else task(inp))
         return [{k: v.permute(0, 2, 3, 1) for k, v in r.items()}
                 for r in rets]

@@ -35,7 +35,13 @@ head run on the band (`models/layers.py`), and the head maps are gathered
 whole to every rank (`parallel/collectives.py::gather_rows`) for the
 decode and the loss. The band's backward hands the prefix only its rows'
 cotangent, so each rank's gradients are its band's share, summed over the
-space group by the train step.
+space group by the train step. `dcn_head`'s deformable convs sample the
+head's input gathered whole (`models/center_head.py::DCNSepHead`). A
+two-stage model's first stage is banded so, with its neck output gathered
+whole for the RoI stage, which every rank runs whole on the gathered maps
+(the JAX GSPMD step's replicated outputs): decode with K1, pooling and
+the RoI head, whose gradients the step averages over the space group
+(`whole_parameters`).
 """
 from __future__ import annotations
 
@@ -101,15 +107,11 @@ class _Tower(nn.Module):
     def tower(self, x: torch.Tensor, bev_map: Optional[torch.Tensor],
               return_bev: bool, rows: int):
         """x: the NCHW canvas (its band under a space layout, of a canvas
-        of `rows` rows) -> the head maps of the whole canvas."""
+        of `rows` rows) -> the head maps of the whole canvas (and with
+        `return_bev` the whole neck output, gathered under a layout)."""
         if self.space is None:
             x = self.neck(x)
             return _with_bev(self.bbox_head(x, bev_map), x, return_bev)
-        if return_bev:
-            raise NotImplementedError(
-                "return_bev under spatial sharding: the second stage "
-                "pools the whole canvas (ROADMAP.md, spatial sharding of "
-                "the two-stage model)")
         coarse = rows // self.neck.in_rows
         x = self.neck(x)
         if bev_map is not None:
@@ -118,9 +120,14 @@ class _Tower(nn.Module):
         bands = self.space.bands(coarse, self.neck.out_rows)
         # the forecast features feed the next head inside the band; the
         # decode and the loss read the rest
-        return [{k: gather_rows(v, 1, bands, self.space)
-                 for k, v in task.items() if k != "feats"}
-                for task in self.bbox_head(x, bev_map)]
+        preds = [{k: gather_rows(v, 1, bands, self.space)
+                  for k, v in task.items() if k != "feats"}
+                 for task in self.bbox_head(x, bev_map, bands)]
+        if return_bev:
+            # the RoI stage pools the whole neck output on every rank (its
+            # training reads it detached)
+            x = gather_rows(x, 2, bands, self.space)
+        return _with_bev(preds, x, return_bev)
 
 
 class PointPillarsDetector(_Tower):
@@ -318,34 +325,35 @@ def init_single_stage_(model: nn.Module, g: torch.Generator) -> None:
     model.bbox_head.reset_init()
 
 
-def refuse_unbanded(cfg: ExperimentConfig) -> None:
-    """Raise NotImplementedError, naming its ROADMAP.md item, for a config
-    that has no banded form yet."""
-    if cfg.model.two_stage_refine:
-        raise NotImplementedError(
-            "a two-stage config under --space: its RoI head runs on "
-            "replicated data, whose gradients the space group must not sum "
-            "(ROADMAP.md, spatial sharding of the two-stage model)")
-    if cfg.model.head.dcn_head:
-        raise NotImplementedError(
-            "dcn_head under --space: the deformable offsets reach beyond a "
-            "one-row halo (ROADMAP.md, spatial sharding with dcn_head)")
-
-
 def lay_out_space_(model: nn.Module, space) -> nn.Module:
     """`model`, a detector of `build_detector`, under the space layout
     `space` (`parallel/mesh.py::SpaceGroup`; nothing for None): the
-    prefix whole on every rank, the rest banded. Raises for a config with
-    no banded form (`refuse_unbanded`)."""
+    prefix whole on every rank, the rest banded; a two-stage model's
+    first stage so, its RoI head whole on every rank (`whole_parameters`).
+    """
     if space is None:
         return model
-    refuse_unbanded(model.cfg)
     model.space = space
+    if hasattr(model, "first_stage"):
+        lay_out_space_(model.first_stage, space)
+        return model
     lay_out_rows_(model, space, banded=False)
     for part in ("z_crush", "neck", "bbox_head"):
         if hasattr(model, part):
             lay_out_rows_(getattr(model, part), space, banded=True)
     return model
+
+
+def whole_parameters(model: nn.Module) -> List[nn.Parameter]:
+    """The parameters that every rank of a space group computes whole,
+    none outside a layout: a two-stage model's RoI head, which reads the
+    gathered maps. The train step averages their gradients over the space
+    group where it sums the bands' shares
+    (`parallel/collectives.py::average_gradients_`)."""
+    if getattr(model, "space", None) is None or \
+            not hasattr(model, "roi_head"):
+        return []
+    return list(model.roi_head.parameters())
 
 
 def build_detector(cfg: ExperimentConfig,

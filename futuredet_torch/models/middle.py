@@ -204,7 +204,8 @@ def stage_pads(s: int, dims) -> Tuple[int, int, int]:
 
 class SparseMiddleEncoder(nn.Module):
     """`site_counts` holds the active sites of stages 0..3 of the last
-    forward (over the whole batch; the active cells of a dense stage).
+    forward (over the whole batch; the active cells of a dense stage,
+    counted on the device and copied to the host when read).
     The knobs are the JAX encoder's (module docstring): `gather_algo`,
     `xpack_max_cin`, `sparse_dtype` and `packed_pairs` set each sparse
     conv's input form, `dense_from_stage` and `dense_dtype` the dense
@@ -236,7 +237,16 @@ class SparseMiddleEncoder(nn.Module):
             self.add_module(f"conv{s + 1}", nn.ModuleList([
                 SparseConv(c[s - 1], c[s], bias=False), MaskedBatchNorm(c[s]),
                 nn.ReLU(), SparseBasicBlock(c[s]), SparseBasicBlock(c[s])]))
-        self.site_counts: List[int] = []
+        self._site_counts: List = []
+
+    @property
+    def site_counts(self) -> List[int]:
+        """The active sites per stage of the last forward ([] before one):
+        a sparse stage's count is its table's length, a dense stage's a
+        device tensor copied here rather than in the forward (an exported
+        program keeps no state, and a copy there would sync every
+        forward)."""
+        return [int(c) for c in self._site_counts]
 
     def conv_algo(self, batch_size: int) -> str:
         """The gather algo the JAX package runs at this batch size and
@@ -291,7 +301,7 @@ class SparseMiddleEncoder(nn.Module):
                 canvas, dtype=self.dense_dtype), mask), mask)
             for block in self.conv1:
                 canvas = block.dense(canvas, mask, self.dense_dtype)
-            counts = [int(mask.sum())]
+            counts = [mask.sum()]
         else:
             table = neighbor_table(grid, dims)
             x = torch.relu(bn(conv(x, table, form=self.conv_form(
@@ -313,7 +323,7 @@ class SparseMiddleEncoder(nn.Module):
                 dims = out_dims
                 for block in blocks:
                     canvas = block.dense(canvas, mask, self.dense_dtype)
-                counts.append(int(mask.sum()))
+                counts.append(mask.sum())
                 continue
             ngrid = downsample_coords(grid, out_dims, pads)
             # the strided conv reads the previous stage's sites
@@ -329,7 +339,8 @@ class SparseMiddleEncoder(nn.Module):
                 x = block(x, table, grid, B,
                           self.conv_form(algo, s, self.channels[s]))
             counts.append(grid.ids.shape[0])
-        self.site_counts = counts
+        if not torch.compiler.is_exporting():
+            self._site_counts = counts
 
         # z-crush input (ref extra_conv :140-146 and .dense() :165-168):
         # the last stage on a dense canvas, z folded into channels

@@ -127,7 +127,15 @@ class TwoStageDetector(nn.Module):
     9-193). `forward` returns (first-stage preds, proposals: Detections,
     roi dict of logits, resid, boxes, scores); the final score is
     sqrt(sigmoid(logit) * stage-1 score), 0 on an invalid proposal (ref
-    post_process :139)."""
+    post_process :139).
+
+    Under a space layout the first stage is banded and returns its maps
+    and neck output gathered whole, so that every rank of the space group
+    runs the rest whole, as the JAX GSPMD step computes it with its
+    outputs replicated: the decode (one K1 launch a forward on every
+    rank), the pooling and the RoI head."""
+
+    space = None        # the layout of `models/detector.py::lay_out_space_`
 
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()

@@ -11,6 +11,13 @@ Top-k is the prefix of a stable descending sort: `jax.lax.top_k` puts the
 lower index first on equal scores, and untrained heads give many equal
 scores, while `torch.topk` promises no order among them.
 
+The circle NMS is plain PyTorch, as the JAX package's is plain XLA: a
+greedy walk over the finite scores, sized per scene on the host. It is
+the operator `torch.ops.futuredet.circle_nms` (CPU and CUDA bodies both
+that code; a fake implementation gives its (post_max,) int64 selection
+and scalar count), so that `torch.export` keeps it as one node of the
+program, as it keeps K1.
+
 `rotate_nms_np` and `iou_bev_np` are the port's own copies of the JAX
 package's numpy oracle (tests only).
 """
@@ -21,6 +28,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from .pallas_nms import greedy_alive, rotate_nms_alive
 
@@ -76,13 +84,9 @@ def rotate_nms(boxes: torch.Tensor, scores: torch.Tensor,
     return sel.reshape(*lead, post_max), count.reshape(lead)
 
 
-def circle_nms(centers: torch.Tensor, scores: torch.Tensor,
-               valid: torch.Tensor, *, min_radius: float, post_max: int = 83
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Centre-distance greedy suppression (reference circle_nms_jit.py:5-29):
-    j is suppressed when its squared centre distance to a kept box is
-    <= min_radius (the reference passes the threshold as a squared
-    distance). centers (N, 2). Plain PyTorch: it is off the main path."""
+def _circle_nms(centers: Tensor, scores: Tensor, valid: Tensor,
+                min_radius: float, post_max: int) -> Tuple[Tensor, Tensor]:
+    """The operator's body, on the CPU and on the card alike."""
     N = centers.shape[0]
     scores = torch.where(valid, scores,
                          torch.full_like(scores, float("-inf")))
@@ -95,7 +99,37 @@ def circle_nms(centers: torch.Tensor, scores: torch.Tensor,
     alive = torch.zeros_like(ok)
     alive[:n] = greedy_alive((d2 <= min_radius)[None], ok[None, :n])[0]
     sel, count = _compact(alive[None], order[None], post_max)
-    return sel[0], count[0]
+    return sel[0].clone(), count[0].clone()
+
+
+def _circle_nms_fake(centers: Tensor, scores: Tensor, valid: Tensor,
+                     min_radius: float, post_max: int
+                     ) -> Tuple[Tensor, Tensor]:
+    return (centers.new_empty((post_max,), dtype=torch.int64),
+            centers.new_empty((), dtype=torch.int64))
+
+
+_LIB = torch.library.Library("futuredet", "FRAGMENT")
+_LIB.define("circle_nms(Tensor centers, Tensor scores, Tensor valid, "
+            "float min_radius, int post_max) -> (Tensor, Tensor)")
+_LIB.impl("circle_nms", _circle_nms, "CPU")
+_LIB.impl("circle_nms", _circle_nms, "CUDA")
+torch.library.register_fake("futuredet::circle_nms", _circle_nms_fake,
+                            lib=_LIB)
+circle_nms_op = torch.ops.futuredet.circle_nms.default
+
+
+def circle_nms(centers: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, *, min_radius: float, post_max: int = 83
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Centre-distance greedy suppression (reference circle_nms_jit.py:5-29):
+    j is suppressed when its squared centre distance to a kept box is
+    <= min_radius (the reference passes the threshold as a squared
+    distance). centers (N, 2), scores (N,), valid (N,) bool -> (selected
+    (post_max,) int64 indices into N, -1 padded; keep count ()), through
+    `torch.ops.futuredet.circle_nms`. The selection has no gradient."""
+    return circle_nms_op(centers.detach(), scores.detach(), valid,
+                         float(min_radius), int(post_max))
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,11 @@ that XLA's SPMD partitioner inserts for its `space` axis (`step.py:179-
   * `halo_rows` gives a band of canvas rows the rows of its neighbours
     that a conv window reaches (point-to-point, with the transpose in its
     backward), `gather_rows` the whole canvas from its bands (its
-    backward hands each rank the cotangent of its own rows);
+    backward hands each rank the cotangent of its own rows: every rank
+    computes the same loss of it), `gather_rows_summed` the same whole
+    canvas for a layer that reads it anywhere but computes only its
+    band's outputs (its backward sums the cotangents over the space group,
+    then hands each rank its own rows: a reduce-scatter);
   * `gather_detections` and `gather_eval_batch` replace
     `process_allgather`: fixed-shape `all_gather`s concatenated along the
     batch in rank order, with the JAX encoding of tokens and GT
@@ -146,27 +150,35 @@ def pmean(*tensors: torch.Tensor, group=None) -> List[torch.Tensor]:
         else list(tensors)
 
 
-def average_gradients_(params: Sequence[torch.Tensor], space=None) -> None:
+def average_gradients_(params: Sequence[torch.Tensor], space=None,
+                       whole: Sequence[torch.Tensor] = ()) -> None:
     """In place: every `.grad` of `params` becomes its mean over the ranks,
     in one all-reduce of the gradients flattened into one buffer. Under a
     `parallel/mesh.py::SpaceGroup` each rank's gradient is its band's
     share of its space group's, so the gradient becomes the sum over the
     space group and the mean over the data group: the all-reduce over the
-    world divided by the data width. Every rank must hold gradients for
-    the same parameters. Nothing on one rank."""
+    world divided by the data width. The parameters of `whole` are those
+    that every rank of a space group computes whole (a two-stage model's
+    RoI head, on the gathered maps): their gradients are divided by the
+    space width before the same all-reduce, so that they are averaged
+    over the space group, not counted once a rank. Every rank must hold
+    gradients for the same parameters and pass the same `whole`. Nothing
+    on one rank."""
     n = world_size()
     if n == 1:
         return
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads])
+    scaled = {id(p) for p in whole} if space is not None else set()
+    held = [p for p in params if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) / space.n_space if id(p) in scaled
+                      else p.grad.reshape(-1) for p in held])
     home = flat.device
     flat = flat.to(_collective_device(flat))
     dist.all_reduce(flat)
     flat = flat.to(home).div_(n if space is None else space.n_data)
     i = 0
-    for g in grads:
-        g.copy_(flat[i:i + g.numel()].view(g.shape))
-        i += g.numel()
+    for p in held:
+        p.grad.copy_(flat[i:i + p.grad.numel()].view(p.grad.shape))
+        i += p.grad.numel()
 
 
 # ---------------------------------------------------------------------------
@@ -176,12 +188,13 @@ def average_gradients_(params: Sequence[torch.Tensor], space=None) -> None:
 # ---------------------------------------------------------------------------
 
 # what the halo exchanges of this process moved (forward and backward):
-# calls, and bytes this rank sent
-HALO_STATS = {"exchanges": 0, "bytes": 0}
+# calls, and bytes this rank sent; and the same of `gather_rows_summed`
+# (its all-gather and its backward's all-reduce)
+HALO_STATS = {"exchanges": 0, "bytes": 0, "gathers": 0, "gather_bytes": 0}
 
 
 def reset_halo_stats() -> None:
-    HALO_STATS.update(exchanges=0, bytes=0)
+    HALO_STATS.update(exchanges=0, bytes=0, gathers=0, gather_bytes=0)
 
 
 def _wire(t: torch.Tensor, group) -> torch.Tensor:
@@ -259,18 +272,25 @@ def halo_rows(x: torch.Tensor, top: int, bot: int, space) -> torch.Tensor:
     return _HaloRows.apply(x, top, bot, space)
 
 
+def _all_gather_rows(x: torch.Tensor, dim: int, bands, space
+                     ) -> torch.Tensor:
+    """The whole tensor from every rank's band along `dim`: one all-gather
+    of the bands padded to the widest. Returns it on x's device."""
+    widest = max(b - a for a, b in bands)
+    pad = list(x.shape)
+    pad[dim] = widest - x.shape[dim]
+    w = _wire(torch.cat([x, x.new_zeros(pad)], dim), space.space)
+    parts = [torch.empty_like(w) for _ in bands]
+    dist.all_gather(parts, w, group=space.space)
+    return torch.cat([p.to(x.device).narrow(dim, 0, b - a)
+                      for p, (a, b) in zip(parts, bands)], dim)
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, bands, space):
         ctx.dim, ctx.band = dim, bands[space.index]
-        widest = max(b - a for a, b in bands)
-        pad = list(x.shape)
-        pad[dim] = widest - x.shape[dim]
-        w = _wire(torch.cat([x, x.new_zeros(pad)], dim), space.space)
-        parts = [torch.empty_like(w) for _ in bands]
-        dist.all_gather(parts, w, group=space.space)
-        return torch.cat([p.to(x.device).narrow(dim, 0, b - a)
-                          for p, (a, b) in zip(parts, bands)], dim)
+        return _all_gather_rows(x, dim, bands, space)
 
     @staticmethod
     def backward(ctx, g):
@@ -287,6 +307,42 @@ def gather_rows(x: torch.Tensor, dim: int, bands, space) -> torch.Tensor:
     its own rows (not the sum over the ranks, which would count a loss
     that every rank computes once per rank)."""
     return _GatherRows.apply(x, dim, bands, space)
+
+
+class _GatherRowsSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, bands, space):
+        ctx.dim, ctx.band, ctx.space = dim, bands[space.index], space
+        widest = max(b - a for a, b in bands)
+        HALO_STATS["gathers"] += 1
+        HALO_STATS["gather_bytes"] += (x.numel() // x.shape[dim] * widest
+                                       * x.element_size())
+        return _all_gather_rows(x, dim, bands, space)
+
+    @staticmethod
+    def backward(ctx, g):
+        # each rank's cotangent of the whole tensor holds only what its
+        # band's outputs read: the sum over the space group is the
+        # cotangent, of which each rank keeps its own rows. An all-reduce
+        # and a slice (bands may differ in rows), staged inside the node
+        g = g.contiguous()
+        HALO_STATS["gathers"] += 1
+        HALO_STATS["gather_bytes"] += g.numel() * g.element_size()
+        a, b = ctx.band
+        return (_all_reduce_sum(g, ctx.space.space).narrow(ctx.dim, a, b - a)
+                .contiguous(), None, None, None)
+
+
+def gather_rows_summed(x: torch.Tensor, dim: int, bands, space
+                       ) -> torch.Tensor:
+    """The whole tensor on every rank of the space group from each rank's
+    band along `dim`, as `gather_rows`, for a layer that reads the whole
+    tensor but computes only its own band's outputs (a deformable conv,
+    whose samples reach any row): its backward sums every rank's
+    cotangent over the space group and gives each rank its own rows (a
+    reduce-scatter). `HALO_STATS` counts its calls and bytes, forward and
+    backward."""
+    return _GatherRowsSummed.apply(x, dim, bands, space)
 
 
 def _all_gather_np(a: np.ndarray, group=None) -> np.ndarray:

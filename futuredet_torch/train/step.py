@@ -34,6 +34,12 @@ is the sum over the space group and the mean over the data group
 (`average_gradients_`). The clip, AdamW, `grad_norm` and the rank-mean
 losses are those of the data-parallel step.
 
+Under a space layout a two-stage model adds the RoI head's loss over the
+batch to the per-sample head loss, as the GSPMD step does (`:208-226`):
+every rank runs the RoI stage whole on the gathered maps, so the RoI
+head's gradients are whole on every rank and are averaged over the space
+group, not summed (`models/detector.py::whole_parameters`).
+
 A two-stage model (`models/two_stage.py`) adds the RoI head's loss and
 trains only `two_stage_trainable_mask`'s parameters, as the JAX
 package's `multi_transform` (train: clip + AdamW, freeze: `set_to_zero`,
@@ -66,6 +72,7 @@ from torch import nn
 
 from ..config import ExperimentConfig
 from ..data.targets import build_targets_batch
+from ..models.detector import whole_parameters
 from ..models.losses import center_head_loss
 from ..parallel.collectives import average_gradients_, pmean
 from .schedule import one_cycle_lr, one_cycle_momentum
@@ -147,27 +154,31 @@ def per_sample_loss(cfg: ExperimentConfig, preds, targets
 def forward_backward(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
     """Targets from batch["targets_raw"] on the device, the forward in the
     model's mode (with batch["bev_map"] for a bev_map config), the head
-    mode's loss (plus the RoI head's, roi_cls_loss and roi_reg_loss, for a
-    two-stage model: JAX step.py:123-135; per sample under a space layout)
-    and its backward into `.grad`. Returns the losses."""
+    mode's loss (per sample under a space layout) plus, for a two-stage
+    model, the RoI head's over the batch (roi_cls_loss and roi_reg_loss:
+    JAX step.py:123-135, 208-226), and its backward into `.grad`. Returns
+    the losses."""
     cfg = model.cfg
     targets = build_targets_batch(cfg, batch["targets_raw"])
     out = model(batch["points"], batch["points_valid"],
                 batch.get("bev_map"))
+    two_stage = cfg.model.two_stage_refine
+    preds = out[0] if two_stage else out
     if getattr(model, "space", None) is not None:
-        losses = per_sample_loss(cfg, out, targets)
-    elif cfg.model.two_stage_refine:
-        from ..models.two_stage import two_stage_loss
-        preds, det, roi = out
+        losses = per_sample_loss(cfg, preds, {
+            k: v for k, v in targets.items()
+            if not (two_stage and k in ("gt_boxes", "gt_valid"))})
+    else:
         losses = center_head_loss(cfg.model.head, preds, targets)
+    if two_stage:
+        from ..models.two_stage import two_stage_loss
+        _, det, roi = out
         rl = two_stage_loss(roi["logits"], roi["resid"], det.boxes,
                             targets["gt_boxes"], targets["gt_valid"],
                             det.valid)
         losses = dict(losses, roi_cls_loss=rl["roi_cls_loss"],
                       roi_reg_loss=rl["roi_reg_loss"],
                       loss=losses["loss"] + rl["loss"])
-    else:
-        losses = center_head_loss(cfg.model.head, out, targets)
     losses["loss"].backward()
     return losses
 
@@ -207,7 +218,7 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     model.zero_grad(set_to_none=True)
     losses = forward_backward(model, batch)
     average_gradients_(list(model.parameters()),
-                       getattr(model, "space", None))
+                       getattr(model, "space", None), whole_parameters(model))
     grad_norm = apply_update(model, optimizer, step)
     keys = list(losses)
     means = pmean(*(losses[k].detach() for k in keys))

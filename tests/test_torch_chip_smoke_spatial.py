@@ -1,7 +1,8 @@
 """chip_smoke.py's phase 39 (spatial sharding on gloo ranks) rehearsed on
 the CPU: the tiny configs, K1 and K2 counted in their plain versions, the
 unsharded references in this process and the 2 and 3 ranks as their own
-processes, as the phase runs them on the card."""
+processes, as the phase runs them on the card; the pillar two-stage config
+and forecast_n0 under dcn_head among the jobs."""
 import os
 import sys
 
@@ -35,11 +36,16 @@ def space_phase_on_the_cpu(monkeypatch, tmp_path):
 def test_space_phase_rehearses_on_the_cpu(space_phase_on_the_cpu, tmp_path):
     lines = space_phase_on_the_cpu
     got = cs.space_path(torch.device("cpu"), "cpu", str(tmp_path))
-    pp, vox = cs.NAME, cs.VOX_NAME
+    pp, vox, pp2 = cs.NAME, cs.VOX_NAME, cs.NAME + "_two_stage"
     assert got == {f"{pp}_space2_pp_eval": {"k1": 1, "k2": 0},
                    f"{vox}_space2_vox_eval": {"k1": 1, "k2": 40},
                    f"{pp}_space2_pp_train": {"k1": 0, "k2": 0},
                    f"{vox}_space2_vox_train": {"k1": 0, "k2": 78},
+                   # the two-stage model decodes on both ranks
+                   f"{pp2}_space2_pp2_eval": {"k1": 2, "k2": 0},
+                   f"{pp2}_space2_pp2_train": {"k1": 2, "k2": 0},
+                   "forecast_n0_space2_dcn_eval": {"k1": 1, "k2": 40},
+                   "forecast_n0_space2_dcn_train": {"k1": 0, "k2": 78},
                    f"{pp}_space3_pp_eval": {"k1": 1, "k2": 0}}
     assert [ln["ranks"] for ln in lines] == [2, 3]
     for ln in lines:
@@ -50,3 +56,13 @@ def test_space_phase_rehearses_on_the_cpu(space_phase_on_the_cpu, tmp_path):
         {"k1": 0, "k2": 39, "k2_dx": 19}] * 2
     assert two["pp_eval"]["max_abs_err"] <= cs.SPACE_RTOL * 10
     assert all(b > 0 for b in two["pp_train"]["halo_bytes"])
+    assert two["pp2_train"]["launches"] == [
+        {"k1": 1, "k2": 0, "k2_dx": 0}] * 2
+    assert two["pp2_train"]["piecewise"] and two["dcn_train"]["piecewise"]
+    assert not two["pp_train"]["piecewise"]
+    assert two["pp2_train"]["float64_reference"]
+    assert not two["dcn_train"]["float64_reference"]
+    assert two["dcn_eval"]["dcn_gathers"] == [1, 1]
+    assert two["dcn_train"]["dcn_gathers"] == [2, 2]
+    assert all(b > 0 for b in two["dcn_train"]["dcn_gather_bytes"])
+    assert two["pp_train"]["dcn_gathers"] == [0, 0]

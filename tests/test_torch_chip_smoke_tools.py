@@ -1,7 +1,8 @@
-"""chip_smoke.py's phases 35-38 (export, --profile, FLOPs, tools and the
-sorted reader) rehearsed on the CPU with the tiny configs, K1 and K2
-counted inside their operators' CPU implementations (so that an exported
-program counts too), a small nuScenes-format dataset and short
+"""chip_smoke.py's phases 35-38 (export, the dense-tail and circle-NMS
+programs among it, --profile, FLOPs, tools and the sorted reader)
+rehearsed on the CPU with the tiny configs, K1 and K2 counted inside
+their operators' CPU implementations (so that an exported program counts
+too), a small nuScenes-format dataset and short
 checkpoints standing in for phases 17 and 21's. The trace of phase 36
 holds no card kernels here: the rehearsal runs it to that check."""
 import os
@@ -58,7 +59,10 @@ def test_tools_phases_rehearse_on_the_cpu(tools_phases_on_the_cpu,
     work = str(tmp_path)
     assert cs.export_path(dev, "cpu", work) == {
         cs.NAME + "_exported": {"k1": 1, "k2": 0},
-        cs.VOX_NAME + "_exported": {"k1": 1, "k2": 20}}
+        cs.VOX_NAME + "_exported": {"k1": 1, "k2": 20},
+        cs.VOX_NAME + "_dense_from_stage0_exported": {"k1": 1, "k2": 0},
+        cs.VOX_NAME + "_dense_from_stage2_exported": {"k1": 1, "k2": 10},
+        cs.NAME + "_circular_nms_exported": {"k1": 0, "k2": 0}}
     with pytest.raises(RuntimeError, match="K2 launches"):
         cs.profile_path(dev, "cpu", work)
     cs.flops_path(dev, "cpu", {cs.NAME: {"uniform": 1.0},
@@ -77,9 +81,13 @@ def test_tools_phases_rehearse_on_the_cpu(tools_phases_on_the_cpu,
     post = cs.tools_path(dev, "cpu", work, str(tmp_path / "pp17"))
     assert post == {cs.NAME + "_postprocess_eval": {"k1": 2, "k2": 0}}
     phases = [ln.get("phase") for ln in lines]
-    assert phases == ["export", "export", "flops", "flops", "tools"]
+    assert phases == ["export"] * 5 + ["flops", "flops", "tools"]
     tools_line = lines[-1]
-    assert [ln["launches_exported"] for ln in lines[:2]] == [(1, 0), (1, 20)]
+    assert [ln["launches_exported"] for ln in lines[:5]] == [
+        (1, 0), (1, 20), (1, 0), (1, 10), (0, 0)]
+    assert lines[4]["operator_nodes"] == {"nms_alive": 0, "circle_nms": 7,
+                                          "gather_conv": 0}
+    assert all("eager_ms" in ln for ln in lines[:2])
     assert tools_line["prototypes"] > 0
     assert tools_line["postprocess_launches_per_sample"] == [(1, 0)] * 2
     assert tools_line["sorted_reader_max_abs_err"] <= \

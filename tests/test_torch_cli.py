@@ -245,16 +245,41 @@ def load_reference_two_stage(argv):
 
 
 @pytest.mark.parametrize("main,extra,item", [
-    (evaluate.main, ["--model", "forecast_n3dtf_two_stage", "--space", "2"],
-     "spatial sharding"),
     (load_reference_two_stage, ["reference.pth"], "long tail"),
-    (train.main, ["--model", "forecast_n3dtf_two_stage", "--space", "2"],
-     "spatial sharding"),
 ])
 def test_unported_flags_raise_naming_their_roadmap_item(main, extra, item):
     base = {evaluate.main: EVAL_ARGS, train.main: TRAIN_ARGS}.get(main, [])
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         main(base + extra)
+
+
+@pytest.mark.parametrize("model", ["forecast_n3dtf_two_stage",
+                                   "pp_forecast_n3dtf_two_stage",
+                                   "forecast_n0 + dcn_head"])
+@pytest.mark.parametrize("cli", ["train", "evaluate"])
+def test_space_takes_every_config(cli, model, monkeypatch):
+    """--space 2 of a two-stage config or of dcn_head passes the layout
+    and fails, in a process of one rank, only for want of its ranks
+    (tests/test_torch_cli_spatial.py::
+    test_space_without_its_ranks_fails_loudly)."""
+    import dataclasses
+
+    from futuredet_torch import config as port_config
+    name = model.split()[0]
+    if model.endswith("dcn_head"):
+        get = port_config.get_config
+
+        def with_dcn(n):
+            cfg = get(n)
+            return cfg.replace(model=dataclasses.replace(
+                cfg.model, head=dataclasses.replace(cfg.model.head,
+                                                    dcn_head=True)))
+        monkeypatch.setattr(port_config, "get_config", with_dcn)
+    main, base = ((train.main, TRAIN_ARGS) if cli == "train"
+                  else (evaluate.main, EVAL_ARGS))
+    with pytest.raises(ValueError, match="--space 2 does not divide the "
+                                         "world size 1"):
+        main(base + ["--model", name, "--space", "2"])
 
 
 def mini_dataset(root, n_samples=2, model=MODEL):

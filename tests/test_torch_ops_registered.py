@@ -155,3 +155,35 @@ def test_sparse_conv_gradients_keep_their_formulas(kind, dtype):
                                              inverse).to(dtype))
     assert torch.equal(w.grad, dw_formula(x.detach().float(), table, dy))
     assert torch.equal(b.grad, dy.sum(0))
+
+
+def test_the_circle_nms_operator():
+    """The circle NMS as `torch.ops.futuredet.circle_nms`: its fake
+    implementation's (post_max,) int64 selection and scalar count,
+    `opcheck` on the CPU, and the selection of `ops/nms.py::circle_nms`
+    equal to a sequential greedy walk's over the valid scores."""
+    from futuredet_torch.ops.nms import circle_nms
+    ops = torch.ops.futuredet
+    assert "circle_nms" in set(dir(ops))
+    with FakeTensorMode():
+        sel, count = ops.circle_nms(torch.empty(500, 2), torch.empty(500),
+                                    torch.empty(500, dtype=torch.bool),
+                                    1.0, 83)
+    assert sel.shape == (83,) and sel.dtype == torch.int64
+    assert count.shape == () and count.dtype == torch.int64
+    rng = np.random.default_rng(3)
+    centers = torch.from_numpy(rng.uniform(-6, 6, (120, 2)).astype(
+        np.float32))
+    scores = torch.from_numpy(rng.uniform(0, 1, 120).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(0, 1, 120) < 0.8)
+    torch.library.opcheck(ops.circle_nms.default,
+                          (centers, scores, valid, 1.5, 20))
+    sel, count = circle_nms(centers, scores, valid, min_radius=1.5,
+                            post_max=20)
+    c, s, v = centers.numpy(), scores.numpy(), valid.numpy()
+    keep = []
+    for i in np.argsort(-np.where(v, s, -np.inf), kind="stable"):
+        if v[i] and all(((c[i] - c[k]) ** 2).sum() > 1.5 for k in keep):
+            keep.append(i)
+    assert int(count) == min(len(keep), 20) == 20
+    assert sel.tolist() == keep[:20]

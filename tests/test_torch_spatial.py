@@ -66,6 +66,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOTAL_STEPS = 4
 WORKER_TIMEOUT_S = 240
 EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-5     # tests/test_spatial_sharding.py's
+# the step's losses (a two-stage model's RoI losses too)
+LOSS_KEYS = ("loss", "hm_loss", "loc_loss", "roi_cls_loss", "roi_reg_loss")
 
 # one rank of a (data, space) layout: its data index's share of the global
 # batch, one train_step (its own gradients, and the summed ones recorded
@@ -104,16 +106,18 @@ else:
     apply_update = S.apply_update
 
     def recording(model, opt, count):
-        seen.update({n: p.grad.clone() for n, p in model.named_parameters()})
+        seen.update({n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None})
         return apply_update(model, opt, count)
 
     S.apply_update = recording
     own = {}
     average = S.average_gradients_
 
-    def recording_average(params, space=None):
-        own.update({n: p.grad.clone() for n, p in model.named_parameters()})
-        return average(params, space)
+    def recording_average(params, *args):
+        own.update({n: p.grad.clone() for n, p in model.named_parameters()
+                    if p.grad is not None})
+        return average(params, *args)
 
     S.average_gradients_ = recording_average
     opt = S.make_optimizer(cfg, model, case["total_steps"])
@@ -208,11 +212,13 @@ def run_layout(tmp_path, case, n_data, n_space):
 
 
 def jax_gspmd_step(cfg_j, mesh):
-    """The JAX GSPMD step's body (`_make_train_step_gspmd`) over `mesh`,
-    returning (gradients, losses, new batch statistics, grad_norm)
-    instead of the update."""
+    """The JAX GSPMD step's body (`_make_train_step_gspmd`, its two-stage
+    branch too) over `mesh`, returning (gradients, losses, new batch
+    statistics, grad_norm) instead of the update."""
+    from futuredet_tpu.models.two_stage import two_stage_loss
     model = jax_build(cfg_j, axis_name=None,
                       canvas_sharding=canvas_sharding(mesh))
+    two_stage = cfg_j.model.two_stage_refine
 
     def step(params, batch_stats, batch):
         def loss_fn(p):
@@ -221,10 +227,22 @@ def jax_gspmd_step(cfg_j, mesh):
                 {"params": p, "batch_stats": batch_stats},
                 batch["points"], batch["points_valid"], train=True,
                 mutable=["batch_stats"])
+            loss_targets = {k: v for k, v in targets.items()
+                            if not (two_stage
+                                    and k in ("gt_boxes", "gt_valid"))}
             losses = jax.vmap(lambda pr, tg: jax_loss(
                 cfg_j.model.head, jax.tree.map(lambda x: x[None], pr),
-                jax.tree.map(lambda x: x[None], tg)))(out, targets)
+                jax.tree.map(lambda x: x[None], tg)))(
+                out[0] if two_stage else out, loss_targets)
             losses = jax.tree.map(lambda x: jnp.mean(x, axis=0), losses)
+            if two_stage:
+                _, det, roi = out
+                rl = two_stage_loss(roi["logits"], roi["resid"], det.boxes,
+                                    targets["gt_boxes"], targets["gt_valid"],
+                                    det.valid)
+                losses = dict(losses, roi_cls_loss=rl["roi_cls_loss"],
+                              roi_reg_loss=rl["roi_reg_loss"],
+                              loss=losses["loss"] + rl["loss"])
             return losses["loss"], (losses, mut["batch_stats"])
         (_, (losses, new_bs)), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(params)
@@ -282,15 +300,23 @@ def check_spatial_step(run):
     assert [r["world"] for r in ranks] == [world] * world
     assert [(r["rank"], r["data_index"], r["index"]) for r in ranks] == \
         [(r, r // n_space, r % n_space) for r in range(world)]
+    keys = [k for k in LOSS_KEYS if k in run["losses"]]
+    assert keys[:3] == ["loss", "hm_loss", "loc_loss"]
     for r in ranks:
-        for k in ("loss", "hm_loss", "loc_loss"):
+        for k in keys:
             np.testing.assert_allclose(r["metrics"][k].numpy(),
                                        np.asarray(run["losses"][k]),
                                        rtol=LOSS_RTOL, atol=0, err_msg=k)
         np.testing.assert_allclose(float(r["metrics"]["grad_norm"]),
                                    run["grad_norm"], rtol=LOSS_RTOL)
-        assert set(r["grads"]) == {k for k in want if not k.endswith(
+        params = {k for k in want if not k.endswith(
             ("running_mean", "running_var", "num_batches_tracked"))}
+        assert set(r["grads"]) <= params
+        # a parameter that no loss term reaches has no gradient (a
+        # two-stage step's heatmap branches, whose loss weight is 0):
+        # JAX's is zero there
+        for n in params - set(r["grads"]):
+            assert not want[n].any(), n
         top = max(float(want[n].abs().max()) for n in r["grads"])
         for n, g in r["grads"].items():
             w = want[n]

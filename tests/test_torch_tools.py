@@ -2,8 +2,11 @@
 and statistics on the same infos pkls (equal pickles, equal counts), the
 trajectory -> snap_to_prototypes chain, compare on two port checkpoints,
 visualize (png, mp4, the named error without matplotlib) and the export
-round trip of a pillar and a VoxelNet config at the tiny geometry."""
+round trip of a pillar and a VoxelNet config at the tiny geometry, of the
+VoxelNet under `middle_dense_from_stage` 0 and 2, and of the pillars under
+`circular_nms`."""
 import builtins
+import dataclasses
 import os
 import pickle
 
@@ -142,33 +145,71 @@ def test_visualize_without_its_package_names_it(tmp_path, monkeypatch,
     assert not list(tmp_path.glob("*.png"))
 
 
-@pytest.fixture(scope="module", params=["pp_forecast_n3dtf", "forecast_n0"])
+def circular_nms(cfg):
+    return cfg.replace(test=dataclasses.replace(cfg.test, circular_nms=True))
+
+
+def dense_from(stage):
+    def knob(cfg):
+        return cfg.replace(model=dataclasses.replace(
+            cfg.model, middle_dense_from_stage=stage))
+    return knob
+
+
+# case -> (config name, the knob on its tiny variant, the exported
+# program's nms_alive, circle_nms and gather_conv nodes): the circle NMS
+# is one node a pseudo-task (7 at B = 1); under middle_dense_from_stage 2
+# the first two stages' 10 sparse convs stay K2, under 0 none do
+EXPORTS = {
+    "pp_forecast_n3dtf": ("pp_forecast_n3dtf", None, (1, 0, 0)),
+    "forecast_n0": ("forecast_n0", None, (1, 0, 20)),
+    "forecast_n3dtf dense_from_stage 0": ("forecast_n3dtf", dense_from(0),
+                                          (1, 0, 0)),
+    "forecast_n3dtf dense_from_stage 2": ("forecast_n3dtf", dense_from(2),
+                                          (1, 0, 10)),
+    "pp_forecast_n3dtf circular_nms": ("pp_forecast_n3dtf", circular_nms,
+                                       (0, 7, 0)),
+}
+
+
+def export_case(case):
+    from futuredet_torch.config import get_config, tiny_variant
+    name, knob, _ = EXPORTS[case]
+    cfg = tiny_variant(get_config(name))
+    return cfg if knob is None else knob(cfg)
+
+
+@pytest.fixture(scope="module", params=list(EXPORTS))
 def exported(request, tmp_path_factory):
     """tools export --tiny --check on the CPU of the default pillar config
-    and of the JAX test's VoxelNet config: the round trip runs inside the
-    command."""
-    out = str(tmp_path_factory.mktemp("export") / f"{request.param}.pt2")
-    path = tools.main(["export", "--model", request.param, "--tiny",
-                       "--check", "--device", "cpu", "--out", out])
+    and of the JAX test's VoxelNet config, and `export_config` of a tiny
+    config under a knob: the round trip runs inside the command."""
+    out = str(tmp_path_factory.mktemp("export") / "program.pt2")
+    name, knob, _ = EXPORTS[request.param]
+    if knob is None:
+        path = tools.main(["export", "--model", name, "--tiny", "--check",
+                           "--device", "cpu", "--out", out])
+    else:
+        path = tools.export_config(export_case(request.param), out, "cpu",
+                                   check=True)
     return request.param, path
 
 
 def test_export_roundtrip(exported):
-    """The artifact loads (the package imported, as here), holds K1 (and a
-    VoxelNet's 20 sparse convs) as the registered operators, and gives the
-    eager program's outputs on a scene of real points."""
-    from futuredet_torch.config import get_config, tiny_variant
+    """The artifact loads (the package imported, as here), holds K1, the
+    circle NMS and K2 as the registered operators, as many as the program
+    runs, and gives the eager program's outputs on a scene of real
+    points."""
     from futuredet_torch.data.synthetic import make_batch
     from futuredet_torch.models.detector import build_detector
-    name, path = exported
+    case, path = exported
     assert os.path.getsize(path) > 10000
     ep = torch.export.load(path)
     targets = [str(n.target) for n in ep.graph.nodes
                if n.op == "call_function"]
-    cfg = tiny_variant(get_config(name))
-    k2 = 20 if cfg.model.detector == "voxelnet" else 0
-    assert targets.count("futuredet.nms_alive.default") == 1
-    assert targets.count("futuredet.gather_conv.default") == k2
+    cfg = export_case(case)
+    assert tuple(targets.count(f"futuredet.{op}.default") for op in (
+        "nms_alive", "circle_nms", "gather_conv")) == EXPORTS[case][2]
     batch = make_batch(cfg, 1, seed=3)
     pts = torch.as_tensor(batch["points"])
     valid = torch.as_tensor(batch["points_valid"])
@@ -180,3 +221,13 @@ def test_export_roundtrip(exported):
     assert bool(want[3].any())
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    if cfg.model.middle_dense_from_stage is not None:
+        # the dense tail's counts, kept on the device in the forward, read
+        # as the sparse middle's
+        sparse = build_detector(cfg.replace(model=dataclasses.replace(
+            cfg.model, middle_dense_from_stage=None)), "cpu")
+        with torch.no_grad():
+            sparse(pts, valid)
+        counts = program.model.backbone.site_counts
+        assert counts == sparse.backbone.site_counts and len(counts) == 4
+        assert all(type(c) is int for c in counts)

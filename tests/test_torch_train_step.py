@@ -84,7 +84,7 @@ def jax_variables(model, pts, valid):
     def fill(path, leaf):
         keys = [getattr(k, "key", "") for k in path]
         name = keys[-1]
-        if name == "kernel":
+        if name in ("kernel", "adapt_kernel"):     # the DCN's (9, in, out)
             v = rng.normal(0, 1 / np.sqrt(np.prod(leaf.shape[:-1])),
                            leaf.shape)
         elif name == "scale":

@@ -533,3 +533,33 @@ def test_first_stage_draws_as_the_single_stage_config():
     again = build_detector(cfg, device="cpu", seed=3).state_dict()
     assert all(torch.equal(v, again[k]) for k, v in two.items())
     assert two["roi_head.shared_fc0.weight"].std() > 0
+
+
+def test_the_jax_converter_does_not_bridge_a_reference_two_stage_pth(
+        tmp_path):
+    """A two-stage `.pth` in reference keys (DDP's `module.` prefix, the
+    first stage's det3d keys, which the JAX `_key_map` reads, and the RoI
+    head's). The JAX package does not bridge it:
+    `convert_reference_checkpoint` writes the single-stage tree
+    (`reader/...`, `head/...`) where the two-stage tree holds
+    `first_stage/...` and `roi_head/...`, so it raises, and its key map
+    maps no RoI head key. The port keeps its refusal."""
+    from futuredet_tpu.utils import convert_checkpoint as jcc
+    cfg_j, cfg = pp_config(jax_config), pp_config(port_config)
+    sd = build_detector(cfg, device="cpu").state_dict()
+    path = tmp_path / "two_stage.pth"
+    torch.save({"state_dict": {"module." + k.removeprefix("first_stage."): v
+                               for k, v in sd.items()}}, path)
+    ref = jcc.load_reference_state_dict(str(path))
+    assert "reader.pfn_layers.0.linear.weight" in ref
+    assert sum(k.startswith("roi_head.") for k in ref) == 8
+    variables = filled(init_shapes(cfg_j), np.random.default_rng(0))
+    assert set(variables["params"]) == {"first_stage", "roi_head"}
+    with pytest.raises(KeyError, match="missing module reader"):
+        jcc.convert_reference_checkpoint(ref, cfg_j, variables)
+    params, stats = jcc._key_map(cfg_j)
+    assert not any(key.startswith("roi_head") for _, key, _ in params)
+    assert {p[0] for p, _, _ in params + stats} == {"reader", "neck",
+                                                     "head"}
+    with pytest.raises(NotImplementedError, match="long tail"):
+        load_reference_state_dict(str(path), cfg)
