@@ -1,0 +1,9 @@
+"""The whole step's share of the card's fp32-accurate matmul peak: the
+reference's FLOP count of the window's steps (forward, input gradients
+but the first layer's, weight gradients) over the window's
+seconds and the peak, in % (the untraced window)."""
+from benchmark.readings import mfu
+
+
+def read(rec):
+    return mfu(rec, "train")
