@@ -1,0 +1,7 @@
+"""Kernel, copy and memset launches a scene inside the program's spans
+(`forward`, `decode`; `spans.py`, stretch b)."""
+from benchmark.spans import reading
+
+
+def read(rec):
+    return reading(rec, "stream", None, "launches")

@@ -1,0 +1,7 @@
+"""CUDA calls that waited for the device, a step, inside the program's
+spans (`train_step`; `spans.py`, stretch b)."""
+from benchmark.spans import reading
+
+
+def read(rec):
+    return reading(rec, "train", None, "syncs")

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..config import ExperimentConfig
 from ..ops.nms import circle_nms, rotate_nms
+from ..utils.profiling import span, spanned
 
 
 class Detections(NamedTuple):
@@ -96,6 +97,7 @@ def decode_single(pd: Dict[str, torch.Tensor], cfg: ExperimentConfig):
     return boxes, hm.reshape(B, H * W, C)
 
 
+@spanned("decode")
 def decode_and_nms(cfg: ExperimentConfig,
                    preds: List[Dict[str, torch.Tensor]]) -> Detections:
     """Full predict path. Returns Detections with N = T * post_max (T
@@ -134,18 +136,20 @@ def decode_and_nms(cfg: ExperimentConfig,
     G = T * B
     boxes, scores = boxes.reshape(G, HW, 9), scores.reshape(G, HW)
     labels, ok = labels.reshape(G, HW), ok.reshape(G, HW)
-    if tc.circular_nms:
-        # per-pseudo-task radius; a short tuple broadcasts (ref :725-728)
-        sel = torch.stack([
-            circle_nms(boxes[g, :, :2], scores[g], ok[g],
-                       min_radius=float(tc.min_radius[
-                           min(g // B, len(tc.min_radius) - 1)]),
-                       post_max=post)[0]
-            for g in range(G)])
-    else:
-        sel, _ = rotate_nms(boxes[..., [0, 1, 2, 3, 4, 5, 8]], scores, ok,
-                            iou_threshold=tc.nms.iou_threshold,
-                            pre_max=tc.nms.pre_max_size, post_max=post)
+    with span("decode.nms"):
+        if tc.circular_nms:
+            # per-pseudo-task radius; a short tuple broadcasts (ref
+            # :725-728)
+            sel = torch.stack([
+                circle_nms(boxes[g, :, :2], scores[g], ok[g],
+                           min_radius=float(tc.min_radius[
+                               min(g // B, len(tc.min_radius) - 1)]),
+                           post_max=post)[0]
+                for g in range(G)])
+        else:
+            sel, _ = rotate_nms(boxes[..., [0, 1, 2, 3, 4, 5, 8]], scores,
+                                ok, iou_threshold=tc.nms.iou_threshold,
+                                pre_max=tc.nms.pre_max_size, post_max=post)
     keep = sel >= 0
     idx = sel.clamp_min(0)
     bb = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 9))

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import spanned
 from .layers import (BandPad2d, ConvBNReLU, DeconvBNReLU, SplitInputConv2d,
                      conv_bn_relu)
 
@@ -72,6 +73,7 @@ class RPN(nn.Module):
             ds_strides[:self.upsample_start + 1])) if deblocks \
             else 1
 
+    @spanned("neck")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ups = []
         for i, block in enumerate(self.blocks):

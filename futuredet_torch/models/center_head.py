@@ -52,6 +52,7 @@ from torch import nn
 from ..config import HeadConfig
 from ..ops.deform import deform_conv2d
 from ..parallel.collectives import gather_rows_summed
+from ..utils.profiling import spanned
 from .layers import Conv2d, ConvBNReLU, conv_bn_relu
 
 Heads = Tuple[Tuple[str, Tuple[int, int]], ...]
@@ -264,6 +265,7 @@ class CenterHead(nn.Module):
         for t in self.tasks:
             t.reset_init()
 
+    @spanned("head")
     def forward(self, x: torch.Tensor, bev_map: Optional[torch.Tensor] = None,
                 bands=None) -> List[Dict[str, torch.Tensor]]:
         """x (B, C, H, W), bev_map (B, H, W, 1) in canvas orientation (row =

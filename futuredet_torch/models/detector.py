@@ -54,6 +54,7 @@ from ..config import ExperimentConfig
 from ..ops.sparse_conv import out_dims_of
 from ..ops.voxelize import PointVoxelMap, point_voxel_map, run_means
 from ..parallel.collectives import gather_rows
+from ..utils.profiling import spanned
 from .backbone2d import RPN
 from .center_head import CenterHead
 from .layers import (ConvBNReLU, SplitInputConv2d, init_weights_,
@@ -151,6 +152,7 @@ class PointPillarsDetector(_Tower):
                         compute_dtype=cd)
         self.bbox_head = CenterHead(c.model.head, compute_dtype=cd)
 
+    @spanned("forward")
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
                 bev_map: Optional[torch.Tensor] = None,
                 return_bev: bool = False):
@@ -225,6 +227,7 @@ class VoxelNetDetector(_Tower):
         self.neck = RPN(r.in_channels, **rpn, compute_dtype=cd)
         self.bbox_head = CenterHead(m.head, compute_dtype=cd)
 
+    @spanned("forward")
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
                 bev_map: Optional[torch.Tensor] = None,
                 return_bev: bool = False):
@@ -248,6 +251,7 @@ class VoxelNetDetector(_Tower):
             x = self.crush(bev, zmask)
         return self.tower(x, bev_map, return_bev, rows)
 
+    @spanned("voxelize")
     def voxelize(self, points: torch.Tensor, points_valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, PointVoxelMap]:
         """Mean features (N, F) of the batch's voxels and their map, under
@@ -290,6 +294,7 @@ class VoxelNetDetector(_Tower):
             0, 1, 4, 2, 3).reshape(batch_size, G * C, H4, W4)
         return self.mid_conv1(self.mid_conv0(x))
 
+    @spanned("z_crush")
     def crush(self, bev: torch.Tensor, zmask: torch.Tensor) -> torch.Tensor:
         """(B, Y, X, Z*C) middle output -> (B, rpn.in_channels, Y, X)."""
         x = self.z_crush(bev.permute(0, 3, 1, 2))

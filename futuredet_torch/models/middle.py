@@ -63,6 +63,7 @@ from ..ops.sparse_conv import (SparseGrid, bf16_truncate, downsample_coords,
                                make_grid, neighbor_table, out_dims_of,
                                scatter_dense, strided_gather_table,
                                strided_inverse_table, subm_conv_apply)
+from ..utils.profiling import span, spanned
 from .readers import MaskedBatchNorm
 
 # K2 input forms of a sparse conv (`conv_form`): fp32 (None), x and W in
@@ -279,6 +280,7 @@ class SparseMiddleEncoder(nn.Module):
             return ROUND_X if algo == "window" else BF16
         return None
 
+    @spanned("middle")
     def forward(self, voxel_feats: torch.Tensor, coords: torch.Tensor,
                 batch: torch.Tensor = None, batch_size: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,19 +293,22 @@ class SparseMiddleEncoder(nn.Module):
         dense_start = (4 if self.dense_from_stage is None
                        else self.dense_from_stage)
         algo = self.conv_algo(B)
-        grid, order = make_grid(coords, dims, batch)
+        with span("middle.tables"):
+            grid, order = make_grid(coords, dims, batch)
         x = voxel_feats[order]
         canvas = mask = None          # the dense tail's, once it starts
         conv, bn = self.conv_input
         if dense_start <= 0:
-            canvas, mask = _to_dense(x, grid, dims, B)
+            with span("middle.tables"):
+                canvas, mask = _to_dense(x, grid, dims, B)
             canvas = _masked_relu(_bn_dense(bn, conv.dense(
                 canvas, dtype=self.dense_dtype), mask), mask)
             for block in self.conv1:
                 canvas = block.dense(canvas, mask, self.dense_dtype)
             counts = [mask.sum()]
         else:
-            table = neighbor_table(grid, dims)
+            with span("middle.tables"):
+                table = neighbor_table(grid, dims)
             x = torch.relu(bn(conv(x, table, form=self.conv_form(
                 algo, 0, conv.cin, packable=False)), None, grid.batch, B))
             for block in self.conv1:
@@ -316,7 +321,8 @@ class SparseMiddleEncoder(nn.Module):
             out_dims = out_dims_of(dims, pads)
             if s >= dense_start:
                 if canvas is None:            # the sparse -> dense turn
-                    canvas, mask = _to_dense(x, grid, dims, B)
+                    with span("middle.tables"):
+                        canvas, mask = _to_dense(x, grid, dims, B)
                 canvas = down.dense(canvas, 2, pads, self.dense_dtype)
                 mask = mask_downsample(mask, out_dims, pads)
                 canvas = _masked_relu(_bn_dense(bn, canvas, mask), mask)
@@ -325,16 +331,19 @@ class SparseMiddleEncoder(nn.Module):
                     canvas = block.dense(canvas, mask, self.dense_dtype)
                 counts.append(mask.sum())
                 continue
-            ngrid = downsample_coords(grid, out_dims, pads)
-            # the strided conv reads the previous stage's sites
-            dtable = strided_gather_table(grid, ngrid, dims, pads=pads)
-            inv = (strided_inverse_table(grid, ngrid, out_dims, pads=pads)
-                   if torch.is_grad_enabled() else None)
+            with span("middle.tables"):
+                ngrid = downsample_coords(grid, out_dims, pads)
+                # the strided conv reads the previous stage's sites
+                dtable = strided_gather_table(grid, ngrid, dims, pads=pads)
+                inv = (strided_inverse_table(grid, ngrid, out_dims,
+                                             pads=pads)
+                       if torch.is_grad_enabled() else None)
             form = self.conv_form(algo, s - 1, self.channels[s - 1])
             x = torch.relu(bn(down(x, dtable, inv, form), None, ngrid.batch,
                               B))
             grid, dims = ngrid, out_dims
-            table = neighbor_table(grid, dims)
+            with span("middle.tables"):
+                table = neighbor_table(grid, dims)
             for block in blocks:
                 x = block(x, table, grid, B,
                           self.conv_form(algo, s, self.channels[s]))
@@ -345,7 +354,8 @@ class SparseMiddleEncoder(nn.Module):
         # z-crush input (ref extra_conv :140-146 and .dense() :165-168):
         # the last stage on a dense canvas, z folded into channels
         if canvas is None:
-            canvas, mask = _to_dense(x, grid, dims, B)
+            with span("middle.tables"):
+                canvas, mask = _to_dense(x, grid, dims, B)
         _, C, Z, Y, X = canvas.shape
         # active sites of the ref extra_conv output ((3,1,1) kernel, stride
         # (2,1,1), no z padding): the detector re-masks z_crush with it

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..ops.voxelize import PointVoxelMap
 from ..parallel.collectives import pmean, psum
+from ..utils.profiling import spanned
 from .layers import BN_EPS, BN_MOMENTUM
 
 
@@ -216,6 +217,7 @@ class PillarFeatureNetDirect(nn.Module):
             cin = 2 * units
         self.pfn_layers = nn.ModuleList(layers)
 
+    @spanned("reader")
     def forward(self, points: torch.Tensor,
                 points_valid: torch.Tensor) -> torch.Tensor:
         """points (B, P, F), points_valid (B, P) -> canvas (B, H, W, C). In

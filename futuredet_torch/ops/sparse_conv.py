@@ -35,6 +35,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .pallas_gather import K_TAPS, gather_conv
 
 
@@ -253,12 +254,14 @@ class SparseConvFunction(torch.autograd.Function):
             if inverse_table is None and table.shape[1] != len(features):
                 raise ValueError("a strided conv's input gradient needs its "
                                  "inverse table")
-            dx = subm_conv_dx(dy, table, weights, inverse_table).to(
-                features.dtype)
-        if ctx.needs_input_grad[2]:
-            dw = subm_conv_dw(features.to(dy.dtype), table, dy)
-        if ctx.needs_input_grad[3]:
-            db = dy.sum(0)
+            with span("sparse.dx"):
+                dx = subm_conv_dx(dy, table, weights, inverse_table).to(
+                    features.dtype)
+        with span("sparse.dw"):
+            if ctx.needs_input_grad[2]:
+                dw = subm_conv_dw(features.to(dy.dtype), table, dy)
+            if ctx.needs_input_grad[3]:
+                db = dy.sum(0)
         return dx, None, dw, db, None
 
 

@@ -75,6 +75,7 @@ from ..data.targets import build_targets_batch
 from ..models.detector import whole_parameters
 from ..models.losses import center_head_loss
 from ..parallel.collectives import average_gradients_, pmean
+from ..utils.profiling import span, spanned
 from .schedule import one_cycle_lr, one_cycle_momentum
 
 ADAM_B2 = 0.999
@@ -159,27 +160,31 @@ def forward_backward(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
     JAX step.py:123-135, 208-226), and its backward into `.grad`. Returns
     the losses."""
     cfg = model.cfg
-    targets = build_targets_batch(cfg, batch["targets_raw"])
-    out = model(batch["points"], batch["points_valid"],
-                batch.get("bev_map"))
+    with span("train.targets"):
+        targets = build_targets_batch(cfg, batch["targets_raw"])
+    with span("train.forward"):
+        out = model(batch["points"], batch["points_valid"],
+                    batch.get("bev_map"))
     two_stage = cfg.model.two_stage_refine
     preds = out[0] if two_stage else out
-    if getattr(model, "space", None) is not None:
-        losses = per_sample_loss(cfg, preds, {
-            k: v for k, v in targets.items()
-            if not (two_stage and k in ("gt_boxes", "gt_valid"))})
-    else:
-        losses = center_head_loss(cfg.model.head, preds, targets)
-    if two_stage:
-        from ..models.two_stage import two_stage_loss
-        _, det, roi = out
-        rl = two_stage_loss(roi["logits"], roi["resid"], det.boxes,
-                            targets["gt_boxes"], targets["gt_valid"],
-                            det.valid)
-        losses = dict(losses, roi_cls_loss=rl["roi_cls_loss"],
-                      roi_reg_loss=rl["roi_reg_loss"],
-                      loss=losses["loss"] + rl["loss"])
-    losses["loss"].backward()
+    with span("train.loss"):
+        if getattr(model, "space", None) is not None:
+            losses = per_sample_loss(cfg, preds, {
+                k: v for k, v in targets.items()
+                if not (two_stage and k in ("gt_boxes", "gt_valid"))})
+        else:
+            losses = center_head_loss(cfg.model.head, preds, targets)
+        if two_stage:
+            from ..models.two_stage import two_stage_loss
+            _, det, roi = out
+            rl = two_stage_loss(roi["logits"], roi["resid"], det.boxes,
+                                targets["gt_boxes"], targets["gt_valid"],
+                                det.valid)
+            losses = dict(losses, roi_cls_loss=rl["roi_cls_loss"],
+                          roi_reg_loss=rl["roi_reg_loss"],
+                          loss=losses["loss"] + rl["loss"])
+    with span("train.backward"):
+        losses["loss"].backward()
     return losses
 
 
@@ -200,6 +205,7 @@ def apply_update(model: nn.Module, optimizer: torch.optim.Optimizer,
     return clip_norm if norm is None else norm
 
 
+@spanned("train_step")
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict, step: int) -> Dict[str, torch.Tensor]:
     """One update of a model in train mode on a batch on its device
@@ -217,9 +223,11 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     # every gradient, the frozen ones too: the grad_norm metric reads them
     model.zero_grad(set_to_none=True)
     losses = forward_backward(model, batch)
-    average_gradients_(list(model.parameters()),
-                       getattr(model, "space", None), whole_parameters(model))
-    grad_norm = apply_update(model, optimizer, step)
-    keys = list(losses)
-    means = pmean(*(losses[k].detach() for k in keys))
+    with span("train.update"):
+        average_gradients_(list(model.parameters()),
+                           getattr(model, "space", None),
+                           whole_parameters(model))
+        grad_norm = apply_update(model, optimizer, step)
+        keys = list(losses)
+        means = pmean(*(losses[k].detach() for k in keys))
     return {**dict(zip(keys, means)), "grad_norm": grad_norm}

@@ -48,6 +48,7 @@ from ..config import ExperimentConfig
 from ..data.prefetch import prefetch
 from ..models.detector import build_detector, resolve_device
 from ..parallel.collectives import rank
+from ..utils.profiling import Recorder, span, totals, unit
 from .checkpoints import CheckpointManager
 from .step import make_optimizer, train_step
 
@@ -207,10 +208,14 @@ def train(cfg: ExperimentConfig, batches: Iterable[Dict], *,
             pass
     it = prefetch(iter(batches), depth=prefetch_depth) \
         if prefetch_depth > 0 else iter(batches)
+    # the log line's data and step seconds: the totals of the "data" and
+    # "step" spans that `rec` recorded since the last line
+    rec = Recorder().start()
     try:
         _run_loop(cfg, state, it, dev, total_steps, steps_per_epoch, ckpt,
-                  hooks or [], val_fn, preempted, log_fn)
+                  hooks or [], val_fn, preempted, log_fn, rec)
     finally:
+        rec.stop()
         if prefetch_depth > 0:
             it.close()
         # a leaked handler would make the process ignore later SIGTERMs
@@ -231,22 +236,20 @@ def _validate(state: TrainState, val_fn) -> Dict:
 
 
 def _run_loop(cfg, state, it, dev, total_steps, steps_per_epoch, ckpt,
-              hooks, val_fn, preempted, log_fn):
+              hooks, val_fn, preempted, log_fn, rec):
     buf = MetricBuffer()
     budget = cfg.voxel.max_voxels_train
     warned = False
-    t_data = t_step = 0.0
     t0 = time.perf_counter()
     start = state.step
     for step in range(start, total_steps):
-        td = time.perf_counter()
-        batch = _to_device(next(it), dev)
-        t_data += time.perf_counter() - td
+        unit(step)
+        with span("data"):
+            batch = _to_device(next(it), dev)
         for h in hooks:
             h.before_step(step, state, batch)
-        ts = time.perf_counter()
-        metrics = train_step(state.model, state.optimizer, batch, step)
-        t_step += time.perf_counter() - ts
+        with span("step"):
+            metrics = train_step(state.model, state.optimizer, batch, step)
         state.step = step + 1
         buf.push({"loss": metrics["loss"]})
         for h in hooks:
@@ -268,10 +271,12 @@ def _run_loop(cfg, state, it, dev, total_steps, steps_per_epoch, ckpt,
         if (step + 1) % cfg.train.log_interval == 0:
             m = buf.mean_and_clear()
             elapsed = time.perf_counter() - t0
+            t = totals(rec.stop())
+            rec.start()
             log_fn(f"step {step + 1}/{total_steps} loss {m['loss']:.4f} "
-                   f"data {t_data:.2f}s step {t_step:.2f}s "
+                   f"data {t.get('data', 0.0):.2f}s step "
+                   f"{t.get('step', 0.0):.2f}s "
                    f"({elapsed / (step + 1 - start):.2f}s/it)")
-            t_data = t_step = 0.0
         if (step + 1) % steps_per_epoch == 0:
             epoch = (step + 1) // steps_per_epoch
             if val_fn is not None:

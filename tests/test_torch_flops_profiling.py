@@ -3,8 +3,9 @@ package's modules, and the train CLI's --profile: model_flops of the tiny
 pillar and VoxelNet configs equals the analytic count of their convs,
 deconvs, matmuls and K2 contractions exactly (XLA's cost analysis of the
 same JAX forward printed beside it: XLA also counts elementwise
-operations, and its static-capacity middle), a CPU trace file, StepTimer
-and Registry."""
+operations, and its static-capacity middle), a CPU trace file with the
+spans' host track, Registry, and the JAX package's StepTimer (the port
+times the trainer's phases with spans: tests/test_torch_spans.py)."""
 import json
 import time
 
@@ -90,7 +91,7 @@ def test_trace_writes_a_trace_file_on_the_cpu(tmp_path):
 
 
 def test_step_timer_and_registry_behave_as_the_jax_ones():
-    for mod in (profiling, jax_profiling):
+    for mod in (jax_profiling,):
         t = mod.StepTimer()
         with t.phase("data"):
             time.sleep(0.01)
@@ -131,7 +132,28 @@ def test_train_cli_profile_traces_two_steps(tmp_path):
     assert state.step == 2
     files = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(files) == 1
-    names = {e.get("name") for e in
-             json.loads(files[0].read_text())["traceEvents"]}
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
     assert "aten::convolution" in names and "Optimizer.step#AdamW.step" in \
         names
+    # the port's spans, on a host track of their own beside the ops
+    spans = [e for e in events if e.get("cat") == "span"]
+    assert {e["name"] for e in spans} >= {
+        "data", "step", "train_step", "forward", "reader", "neck", "head",
+        "train.backward", "train.update"}
+    assert all(e["tid"] >= profiling.SPAN_TID_OFFSET for e in spans)
+    assert {e["args"]["unit"] for e in spans if e["name"] == "step"} == \
+        {0, 1}
+    # on the trace's own time base: each step span holds its train_step
+    step = [e for e in spans if e["name"] == "step"]
+    inner = [e for e in spans if e["name"] == "train_step"]
+    for a, b in zip(step, inner):
+        assert a["ts"] <= b["ts"] and b["ts"] + b["dur"] <= \
+            a["ts"] + a["dur"] + 1e-3
+    # and on the profiler's clock: every forward convolution lies in a
+    # forward span
+    fwd = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+           if e["name"] == "forward"]
+    convs = [e for e in events if e.get("name") == "aten::convolution"]
+    assert convs and all(any(a <= c["ts"] and c["ts"] + c["dur"] <= b + 1e-3
+                             for a, b in fwd) for c in convs)
