@@ -45,8 +45,9 @@ CUDA toolkit. Phases, one JSON line each (several for some):
      (128,256) at 180x180, 7 chained heads on 512 channels, 7 x 1000-box
      NMS) with seeded random weights, on a blobbed-uniform and a clustered
      scene. Counts zeroed just before and read just after: each scene must
-     launch K2 exactly 20 times and K1 once; the voxel budget must not
-     bind.
+     launch K2 exactly 20 times, K1 once and the card's table builders
+     (csrc/sparse_tables.cu) 11 times (the grid, 4 neighbour tables, 3
+     downsamples, 3 strided tables); the voxel budget must not bind.
   7. K2 against its plain PyTorch version on the card: the 20 convs of the
      uniform scene as the main path gave them (max |diff| <= 1e-5 *
      max(1, max|plain|): fp32 summation order, and 3xTF32 on the tensor
@@ -54,7 +55,10 @@ CUDA toolkit. Phases, one JSON line each (several for some):
      adversarial tables: Cin = 5, N = 1, 65 and 129, Cout = 8 in both
      families, a table of absent entries only (exactly the bias), tiles
      whose sites have all 27 neighbours. Each line names the conv's family
-     (route: narrow or wide) and its bounds.
+     (route: narrow or wide) and its bounds. The 11 table builds of that
+     scene, inputs and outputs as the main path gave them, against their
+     operators' CPU implementations (the plain builders) on the same
+     inputs: every output bit for bit.
   8. the uniform scene through the same weights on the CPU: voxel coords
      and counts identical and features within 1e-6, per-stage site counts
      identical, post-sigmoid heatmaps within 1e-3, detections matched as in
@@ -73,7 +77,8 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       timesteps, M = 500), through futuredet_torch.train.trainer.train for 5
       steps into a temporary work dir. Counts zeroed before each step and
       read after it: 20 K2 forward launches, 19 K2 input-gradient (dx)
-      launches and no K1; every metric finite. Then 10 steps of a fresh
+      launches, no K1 and 14 table builds (a scene's 11 and 3 strided
+      inverse tables); every metric finite. Then 10 steps of a fresh
       model on one repeated batch must bring the loss below step 0's, and
       the trainer's checkpoint restored into a fresh model and optimizer
       must give their saved state exactly.
@@ -84,6 +89,8 @@ CUDA toolkit. Phases, one JSON line each (several for some):
       <= 1e-5 * max(1, max|plain|)), bit-identical when launched again;
       the Function's dW and db against the plain autograd ones (DW_RTOL of
       max(1, max|plain|)). Each line names the dx conv's route and bounds.
+      The first step's 14 table builds, the inverse tables that the dx
+      launches read included, against the plain builders as in phase 7.
   12. one train step of the same weights and batch on the CPU (plain
       versions, full width), with every BatchNorm bias raised by
       BN_BIAS_SHIFT so that no ReLU input lies near 0 (a ReLU decision that
@@ -551,6 +558,12 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # convs each)
 K2_REPRESENTATIVE = {"s0_conv_input_5to16": 0, "s0_subm_16to16": 1,
                      "down1_16to32": 5, "s3_subm_128to128": 16}
+# the sparse middle's table builders (ops/sparse_conv.py's operators) and
+# their builds a VoxelNet scene (the grid, 4 neighbour tables, 3
+# downsamples, 3 strided tables) and a train step (3 inverse tables more)
+TABLE_OPS = ("make_grid", "neighbor_table", "downsample_coords",
+             "strided_gather_table", "strided_inverse_table")
+TABLE_BUILDS = {"scene": 11, "step": 14}
 
 
 T_START = time.perf_counter()
@@ -1174,6 +1187,64 @@ def k2_compare(features, table, weights, bias):
     return line, err <= tol, err
 
 
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+class TableRecorder:
+    """Stands in for ops/sparse_conv.py's `_OPS` (torch.ops.futuredet):
+    counts the table builders' calls and, while `on`, keeps each call's
+    inputs and outputs (cloned) for `tables_vs_plain`."""
+
+    def __init__(self, ops):
+        self.ops, self.calls, self.builds, self.on = ops, [], 0, True
+
+    def __getattr__(self, name):
+        op = getattr(self.ops, name)
+        if name not in TABLE_OPS:
+            return op
+
+        def call(*args):
+            out = op(*args)
+            self.builds += 1
+            if self.on:
+                self.calls.append((name, _clone(args), _clone(out)))
+            return out
+        return call
+
+
+def table_launches():
+    """The card's builds so far, by builder (ops/sparse_conv.py's
+    `.launches`)."""
+    from futuredet_torch.ops import sparse_conv
+    return {fn.__name__: fn.launches for fn in sparse_conv.TABLE_BUILDERS}
+
+
+def tables_vs_plain(calls):
+    """Each recorded build against its operator's CPU implementation (the
+    plain builder) on CPU copies of the same inputs, every output bit for
+    bit, dtype and shape included: (a line a build, all equal)."""
+    lines, same_all = [], True
+    for name, args, out in calls:
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        want = getattr(torch.ops.futuredet, name)(*cpu)
+        got, want = ((out, want) if isinstance(out, tuple)
+                     else ((out,), (want,)))
+        same = len(got) == len(want) and all(
+            g.dtype == w.dtype and g.shape == w.shape
+            and torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        lines.append({"op": name, "device": str(got[0].device),
+                      "sites_in": int(args[0].shape[0]),
+                      "shapes": [list(g.shape) for g in got],
+                      "bit_identical": same})
+        same_all &= same
+    return lines, same_all
+
+
 def voxelnet_path(dev, card):
     """Phases 6-9. Returns the numbers of K1 and K2 on this path."""
     from futuredet_torch.config import get_config
@@ -1208,25 +1279,39 @@ def voxelnet_path(dev, card):
         return k2(f, t, w, b)
 
     record = [True]
-    sc_mod.gather_conv = recorder
+    tables = TableRecorder(sc_mod._OPS)
+    sc_mod.gather_conv, sc_mod._OPS = recorder, tables
     k2.launches = k1.launches = 0
-    outputs, per_scene, sites = {}, {}, {}
-    for name, (pts, valid) in on_card.items():
-        b2, b1 = k2.launches, k1.launches
-        outputs[name] = run(pts, valid)
-        torch.cuda.synchronize()
-        per_scene[name] = (k2.launches - b2, k1.launches - b1)
-        sites[name] = (list(model.num_voxels),
-                       list(model.backbone.site_counts))
-        record[0] = False
-    launches = {"k2": k2.launches, "k1": k1.launches}
-    sc_mod.gather_conv = k2
+    for fn in sc_mod.TABLE_BUILDERS:
+        fn.launches = 0
+    outputs, per_scene, sites, table_runs = {}, {}, {}, {}
+    try:
+        for name, (pts, valid) in on_card.items():
+            b2, b1 = k2.launches, k1.launches
+            bt, before = tables.builds, table_launches()
+            outputs[name] = run(pts, valid)
+            torch.cuda.synchronize()
+            per_scene[name] = (k2.launches - b2, k1.launches - b1)
+            after = table_launches()
+            table_runs[name] = {"builds": tables.builds - bt, "launches": {
+                k: after[k] - before[k] for k in after}}
+            sites[name] = (list(model.num_voxels),
+                           list(model.backbone.site_counts))
+            record[0] = tables.on = False
+    finally:
+        sc_mod.gather_conv, sc_mod._OPS = k2, tables.ops
+    launches = {"k2": k2.launches, "k1": k1.launches,
+                "tables": sum(table_launches().values())}
     T = cfg.model.head.timesteps
     post = cfg.test.nms.post_max_size
     for name, (preds, det) in outputs.items():
         n2, n1 = per_scene[name]
+        nt = table_runs[name]
         check(n2 == 20, f"{name}: K2 launched {n2} times")
         check(n1 == 1, f"{name}: K1 launched {n1} times")
+        check(nt["builds"] == TABLE_BUILDS["scene"]
+              and sum(nt["launches"].values()) == TABLE_BUILDS["scene"],
+              f"{name}: table builds {nt}")
         nvox = sites[name][0][0]
         check(nvox < v.max_voxels_eval,
               f"{name}: {nvox} voxels, the budget {v.max_voxels_eval} bound")
@@ -1240,14 +1325,18 @@ def voxelnet_path(dev, card):
         per_t = det.valid.reshape(T, post).sum(-1).tolist()
         check(sum(per_t) > 0, f"{name}: no detections")
         emit({"phase": "main_path", "model": VOX_NAME, "scene": name,
-              "k2_launches": n2, "k1_launches": n1, "voxels": nvox,
+              "k2_launches": n2, "k1_launches": n1,
+              "table_launches": nt["launches"], "voxels": nvox,
               "voxel_budget": v.max_voxels_eval,
               "sites_per_stage": sites[name][1],
               "detections_per_t": per_t,
               "hm_max": float(torch.sigmoid(preds[0]["hm"]).max())})
-    check(launches == {"k2": 40, "k1": 2},
+    check(launches == {"k2": 40, "k1": 2,
+                       "tables": 2 * TABLE_BUILDS["scene"]},
           f"voxelnet main path launches {launches}")
     check(len(recorded) == 20, f"{len(recorded)} K2 launches recorded")
+    check(len(tables.calls) == TABLE_BUILDS["scene"],
+          f"{len(tables.calls)} table builds recorded")
 
     # 7. K2 against its plain version on the card -------------------------
     convs, ok_all, same_all, k2_err = [], True, True, 0.0
@@ -1263,6 +1352,11 @@ def voxelnet_path(dev, card):
           "rtol_of_max_plain": K2_RTOL, "convs": convs})
     check(ok_all, "K2 differs from its plain version on the main path")
     check(same_all, "K2 is not bit-identical from launch to launch")
+    builds, same = tables_vs_plain(tables.calls)
+    emit({"phase": "tables_vs_plain", "case": "main_path_11_builds",
+          "builds": builds})
+    check(same, "a table builder differs from its plain version on the "
+          "main path")
     rng = np.random.default_rng(2)
 
     def case(V, N, cin, cout, absent):
@@ -1376,7 +1470,9 @@ def voxelnet_path(dev, card):
     return {"k2": {"launches": launches["k2"], "max_abs_err": k2_err,
                    **total,
                    "bound_by": "operations" if ops_share >= 0.5 else "bytes"},
-            "k1_launches": launches["k1"], "scene_ms": times}
+            "k1_launches": launches["k1"], "table_launches": launches["tables"],
+            "table_launches_by_builder": table_runs["uniform_blobs"][
+                "launches"], "scene_ms": times}
 
 
 def state_equal(a, b) -> bool:
@@ -1834,6 +1930,8 @@ def train_path(dev, card, work_dir=None):
     dx_fn, apply_fn = sc_mod.subm_conv_dx, middle_mod.subm_conv_apply
     dx_launches = [0]
     recorded, record = [], [True]
+    tables = TableRecorder(sc_mod._OPS)
+    table_base = [0, {}]
 
     def counting_dx(*args):
         before = k2.launches
@@ -1857,14 +1955,19 @@ def train_path(dev, card, work_dir=None):
     class Count(trainer.Hook):
         def before_step(self, step, state, batch):
             k2.launches = k1.launches = dx_launches[0] = 0
+            table_base[:] = [tables.builds, table_launches()]
 
         def after_step(self, step, state, metrics):
             torch.cuda.synchronize()
-            record[0] = False
+            record[0] = tables.on = False
             m = {k: t.detach().cpu() for k, t in metrics.items()}
+            after = table_launches()
             per_step.append({
                 "step": step, "k2_forward": k2.launches - dx_launches[0],
                 "k2_dx": dx_launches[0], "k1": k1.launches,
+                "table_builds": tables.builds - table_base[0],
+                "table_launches": {k: after[k] - table_base[1][k]
+                                   for k in after},
                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                 "finite": all(bool(torch.isfinite(t).all())
                               for t in m.values()),
@@ -1873,12 +1976,16 @@ def train_path(dev, card, work_dir=None):
 
     sc_mod.subm_conv_dx = counting_dx
     middle_mod.subm_conv_apply = recording_apply
+    sc_mod._OPS = tables
     try:
         state, ckpt, logs, train_s = run_trainer(cfg, dev, TRAIN_CLUTTER,
                                                  [Count()], work_dir)
     finally:
         sc_mod.subm_conv_dx = dx_fn
         middle_mod.subm_conv_apply = apply_fn
+        sc_mod._OPS = tables.ops
+    # the card's builders on the card; the plain ones (no launch) on the CPU
+    card_builds = TABLE_BUILDS["step"] if dev.type == "cuda" else 0
     del state
     for rec in per_step:
         emit({"phase": "train_main_path", "model": VOX_NAME, **rec,
@@ -1887,6 +1994,10 @@ def train_path(dev, card, work_dir=None):
               and rec["k1"] == 0,
               f"train step {rec['step']}: K2 {rec['k2_forward']} forward + "
               f"{rec['k2_dx']} dx launches, K1 {rec['k1']}")
+        check(rec["table_builds"] == TABLE_BUILDS["step"]
+              and sum(rec["table_launches"].values()) == card_builds,
+              f"train step {rec['step']}: {rec['table_builds']} table "
+              f"builds, launches {rec['table_launches']}")
         check(rec["finite"], f"train step {rec['step']}: metric not finite")
         check(max(rec["voxels"]) < v.max_voxels_train,
               f"train step {rec['step']}: {rec['voxels']} voxels reach the "
@@ -1896,6 +2007,9 @@ def train_path(dev, card, work_dir=None):
           f"{len(recorded)} convs recorded")
     check(sum(e["needs_dx"] for e in recorded) == 19,
           "19 convs need their input gradient")
+    check(len(tables.calls) == TABLE_BUILDS["step"]
+          and [c[0] for c in tables.calls].count("strided_inverse_table")
+          == 3, f"{[c[0] for c in tables.calls]} table builds recorded")
     model, opt, batch, losses, after = overfit(cfg, dev, TRAIN_CLUTTER)
     emit({"phase": "train_main_path", "model": VOX_NAME,
           "trainer_s": round(train_s, 3), "trainer_log": logs,
@@ -1951,6 +2065,12 @@ def train_path(dev, card, work_dir=None):
           "dw_rtol_of_max_plain": DW_RTOL, "convs": lines})
     check(ok, "K2's backward or the Function's dW / db differ from plain "
           "autograd")
+    # the tables of that step, the inverse tables that dx reads included
+    builds, same = tables_vs_plain(tables.calls)
+    emit({"phase": "tables_vs_plain", "case": "train_step_14_builds",
+          "builds": builds})
+    check(same, "a table builder differs from its plain version in a train "
+          "step")
 
     # 12. the same step on the CPU ---------------------------------------
     train_cross_check(cfg, dev, TRAIN_CLUTTER)
@@ -1990,6 +2110,9 @@ def train_path(dev, card, work_dir=None):
     return {"launches": sum(r["k2_forward"] + r["k2_dx"] for r in per_step),
             "k1_launches": sum(r["k1"] for r in per_step),
             "forward_per_step": 20, "dx_per_step": 19,
+            "table_launches": sum(sum(r["table_launches"].values())
+                                  for r in per_step),
+            "table_launches_by_builder": per_step[0]["table_launches"],
             "dx_max_abs_err": dx_err, "train_step_ms": step_ms, **sums}
 
 
@@ -5291,7 +5414,17 @@ def main() -> int:
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"],
         "times_are": "sums over the 20 bf16 convs of one scene under "
-                     "compute_dtype and middle_sparse_dtype bfloat16"}]})
+                     "compute_dtype and middle_sparse_dtype bfloat16"}, {
+        "name": "sparse middle table builders",
+        "route": "cuda", "source": "futuredet_torch/csrc/sparse_tables.cu",
+        "replaces": "the plain builders of futuredet_torch/ops/sparse_conv."
+                    "py (no TPU kernel)",
+        "launches": vox["table_launches"] + train["table_launches"],
+        "launches_by_path": {VOX_NAME: vox["table_launches"],
+                             VOX_NAME + "_train": train["table_launches"]},
+        "launches_per_scene": vox["table_launches_by_builder"],
+        "launches_per_train_step": train["table_launches_by_builder"],
+        "matched": True, "bit_identical": True, "max_abs_err": 0}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -294,7 +294,7 @@ class SparseMiddleEncoder(nn.Module):
                        else self.dense_from_stage)
         algo = self.conv_algo(B)
         with span("middle.tables"):
-            grid, order = make_grid(coords, dims, batch)
+            grid, order = make_grid(coords, dims, batch, B)
         x = voxel_feats[order]
         canvas = mask = None          # the dense tail's, once it starts
         conv, bn = self.conv_input
@@ -372,8 +372,9 @@ def _to_dense(x: torch.Tensor, grid: SparseGrid, dims, batch_size: int
     """Site features (N, C) -> the (B, C, Z, Y, X) canvas, zero where
     empty, and its (B, Z, Y, X) active cells."""
     canvas = scatter_dense(x, grid, dims, batch_size)
+    # index_fill_ takes the value as a scalar; `mask[ids] = True` copies it
+    # from pageable host memory, a host sync
     mask = torch.zeros(batch_size * math.prod(dims), dtype=torch.bool,
-                       device=x.device)
-    mask[grid.ids] = True
+                       device=x.device).index_fill_(0, grid.ids, True)
     return (canvas.permute(0, 4, 1, 2, 3).contiguous(),
             mask.reshape(batch_size, *dims))

@@ -7,9 +7,13 @@ middle encoder (`det3d/models/backbones/scn.py:2-3`):
   * active sites: coords (N, 3) zyx with their sample index, sorted by
     the batch-folded linear id `batch * prod(dims) + (z*Y + y)*X + x`, so
     one table and one conv launch serve a whole batch;
-  * neighbour lookup: `torch.searchsorted` over the sorted ids, giving
-    (27, N) int32 tables whose absent entries hold N (the conv reads a zero
-    row there), the JAX package's tables on the same sites;
+  * site map (`SparseGrid.sitemap`, `sitemap_plain`): a bit per cell of
+    each sample's grid, in 32-bit words, and the count of sites in the
+    words before each, so that a site's index in the sorted grid is the
+    rank of its bit;
+  * gather tables: (27, N) int32 tables whose absent entries hold N (the
+    conv reads a zero row there), the JAX package's tables on the same
+    sites;
   * conv: `out[n] = sum_k x[table[k, n]] @ W[k]`, kernel K2
     (`ops/pallas_gather.py::gather_conv`), on fp32 or bf16 x and W;
   * strided conv: spconv's generative rule, every output site that
@@ -23,6 +27,19 @@ middle encoder (`det3d/models/backbones/scn.py:2-3`):
     on K2's bf16 family and the backward on its fp32 families, as the JAX
     VJPs do.
 
+The table builders (`make_grid`, `neighbor_table`, `downsample_coords`,
+`strided_gather_table`, `strided_inverse_table`) are the custom operators
+`torch.ops.futuredet.<name>`. Their CPU implementations are the plain
+builders, the oracle: `torch.sort`, `torch.searchsorted` probes of the
+sorted ids, `torch.unique` of a downsample's candidates. Their CUDA
+implementations are the kernels of `csrc/sparse_tables.cu` (design in its
+header), which look every site up by its rank in a site map and give the
+same tables bit for bit, with one host sync a downsample (its site count
+sizes the output) and none elsewhere. The device of the coords picks the
+implementation. Their fake implementations give the shapes, a
+downsample's site count as an unbacked size, so that `torch.export` keeps
+each builder as one node.
+
 Like spconv, every stage is sized per scene and no site is ever dropped,
 so there is no capacity and no drop counter. The JAX package's x-packed
 9-probe tables, (R, 128) probe rows and popcount-bitmap maps are TPU
@@ -30,21 +47,31 @@ formulations of the same tables and are not ported.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch import Tensor
 
 from ..utils.profiling import span
+from . import _build
 from .pallas_gather import K_TAPS, gather_conv
+
+_SRC = "sparse_tables.cu"
+# words a block of the site map's scan (csrc/sparse_tables.cu: kScanWords)
+SCAN_WORDS = 2048
+# the lookups of `futuredet_sparse_table` (csrc/sparse_tables.cu: TableKind)
+_SUBM, _STRIDED, _INVERSE = 0, 1, 2
 
 
 class SparseGrid(NamedTuple):
     """Active sites of a batch, ascending `ids` (strictly: one row per
-    site)."""
+    site), and their site map."""
     coords: torch.Tensor   # (N, 3) int64 zyx
     batch: torch.Tensor    # (N,) int64 sample index
     ids: torch.Tensor      # (N,) int64 batch * prod(dims) + linear id
+    sitemap: torch.Tensor  # (B, sitemap_words(dims), 2) int32
 
 
 def linear_ids(coords: torch.Tensor, dims) -> torch.Tensor:
@@ -52,17 +79,31 @@ def linear_ids(coords: torch.Tensor, dims) -> torch.Tensor:
     return (z * dims[1] + y) * dims[2] + x
 
 
-def make_grid(coords: torch.Tensor, dims, batch: torch.Tensor = None
-              ) -> Tuple[SparseGrid, torch.Tensor]:
-    """coords (N, 3) zyx of distinct sites in any order, batch (N,) sample
-    index (default 0) -> (sorted SparseGrid, the sorting permutation)."""
-    coords = coords.to(torch.int64)
-    if batch is None:
-        batch = torch.zeros(coords.shape[0], dtype=torch.int64,
-                            device=coords.device)
-    ids = batch.to(torch.int64) * math.prod(dims) + linear_ids(coords, dims)
-    ids, order = torch.sort(ids)
-    return SparseGrid(coords[order], batch.to(torch.int64)[order], ids), order
+def sitemap_words(dims) -> int:
+    """32-cell words a sample of a site map over `dims`."""
+    return -(-math.prod(dims) // 32)
+
+
+def sitemap_plain(ids: torch.Tensor, dims, batch_size: int) -> torch.Tensor:
+    """The site map of ascending, distinct batch-folded `ids` over `dims`:
+    (B, W, 2) int32, W = `sitemap_words(dims)`. [b, w, 0] has bit j set
+    where cell 32 w + j of sample b is a site; [b, w, 1] counts the sites
+    of the words before (b, w). The site at bit j of word (b, w) is then
+    site `[b, w, 1] + popcount([b, w, 0] & ((1 << j) - 1))` of the sorted
+    grid, as `csrc/sparse_tables.cu` looks it up."""
+    cells, words = math.prod(dims), sitemap_words(dims)
+    b = torch.div(ids, cells, rounding_mode="floor")
+    cell = ids - b * cells
+    word = b * words + cell // 32
+    m = batch_size * words
+    # distinct sites: the sum of their bits is their OR
+    bits = torch.zeros(m, dtype=torch.int64, device=ids.device).index_add_(
+        0, word, torch.ones_like(cell) << (cell % 32))
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)  # int32's bits
+    count = torch.bincount(word, minlength=m)
+    prefix = torch.cumsum(count, 0) - count
+    return torch.stack([bits, prefix], -1).to(torch.int32).view(
+        batch_size, words, 2)
 
 
 def _offsets(kernel: int = 3):
@@ -72,25 +113,302 @@ def _offsets(kernel: int = 3):
             for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
 
 
-def _lookup(grid: SparseGrid, batch: torch.Tensor, q: torch.Tensor,
-            dims) -> torch.Tensor:
-    """Index into `grid` of the site at coords q (..., 3) of sample
-    `batch` (...), or N where q lies outside `dims` or holds no site."""
+# ---- the plain builders: the operators' CPU implementations -------------
+
+def _make_grid_cpu(coords: Tensor, batch: Optional[Tensor], dims,
+                   batch_size: int):
+    coords = coords.to(torch.int64)
+    if batch is None:
+        batch = torch.zeros(coords.shape[0], dtype=torch.int64,
+                            device=coords.device)
+    batch = batch.to(torch.int64)
+    hi = torch.tensor(dims, device=coords.device)
+    inside = ((coords >= 0) & (coords < hi)).all(-1)
+    if not bool((inside & (batch >= 0) & (batch < batch_size)).all()):
+        raise ValueError("make_grid: a site outside the grid or the batch")
+    ids = batch * math.prod(dims) + linear_ids(coords, dims)
+    ids, order = torch.sort(ids)
+    if bool((ids[1:] == ids[:-1]).any()):
+        raise ValueError("make_grid: two sites in one cell")
+    return (coords[order], batch[order], ids, order,
+            sitemap_plain(ids, dims, batch_size))
+
+
+def _lookup(ids: Tensor, batch: Tensor, q: Tensor, dims) -> Tensor:
+    """Index into the sorted `ids` of the site at coords q (..., 3) of
+    sample `batch` (...), or N where q lies outside `dims` or holds no
+    site."""
     inb = ((q >= 0) & (q < torch.tensor(dims, device=q.device))).all(-1)
     key = batch * math.prod(dims) + linear_ids(q, dims)
-    pos = torch.searchsorted(grid.ids, key)
+    pos = torch.searchsorted(ids, key)
     # position N reads a sentinel that no key of the grid equals
-    ids = torch.cat([grid.ids, grid.ids.new_full((1,), -1)])
-    found = inb & (ids[pos] == key)
-    return torch.where(found, pos, grid.ids.shape[0]).to(torch.int32)
+    padded = torch.cat([ids, ids.new_full((1,), -1)])
+    found = inb & (padded[pos] == key)
+    return torch.where(found, pos, ids.shape[0]).to(torch.int32)
 
 
-def neighbor_table(grid: SparseGrid, dims, kernel: int = 3) -> torch.Tensor:
-    """(K, N) int32 submanifold gather table; N where a neighbour is
+def _neighbor_table_cpu(coords: Tensor, batch: Tensor, ids: Tensor,
+                        sitemap: Tensor, dims) -> Tensor:
+    offs = torch.tensor(_offsets(), device=coords.device)
+    q = coords[None] + offs[:, None]                           # (K, N, 3)
+    return _lookup(ids, batch[None].expand(len(offs), -1), q, dims)
+
+
+def _downsample_coords_cpu(coords: Tensor, batch: Tensor, out_dims, pads,
+                           batch_size: int):
+    dev = coords.device
+    p = coords + torch.tensor(pads, device=dev)
+    hi = torch.div(p, 2, rounding_mode="floor")
+    has2 = (p % 2) == 0
+    odz = torch.tensor(out_dims, device=dev)
+    total = math.prod(out_dims)
+    keys = []
+    for bz in (0, 1):
+        for by in (0, 1):
+            for bx in (0, 1):
+                sel = torch.tensor([bz, by, bx], device=dev)
+                q = hi - sel
+                ok = ((q >= 0) & (q < odz)).all(-1)
+                ok &= ((sel == 0) | has2).all(-1)
+                keys.append((batch * total + linear_ids(q, out_dims))[ok])
+    ids = torch.unique(torch.cat(keys))                       # sorted
+    b = torch.div(ids, total, rounding_mode="floor")
+    lin = ids - b * total
+    Y, X = out_dims[1], out_dims[2]
+    out = torch.stack([lin // (Y * X), (lin // X) % Y, lin % X], -1)
+    return out, b, ids, sitemap_plain(ids, out_dims, batch_size)
+
+
+def _strided_gather_table_cpu(coords: Tensor, batch: Tensor, ids: Tensor,
+                              sitemap: Tensor, dims, pads) -> Tensor:
+    dev = coords.device
+    offs = torch.tensor(_offsets(), device=dev)
+    shift = 1 - torch.tensor(pads, device=dev)
+    c = 2 * coords[None] + offs[:, None] + shift               # (K, N, 3)
+    return _lookup(ids, batch[None].expand(len(offs), -1), c, dims)
+
+
+def _strided_inverse_table_cpu(coords: Tensor, batch: Tensor, ids: Tensor,
+                               sitemap: Tensor, out_dims, pads) -> Tensor:
+    dev = coords.device
+    offs = torch.tensor(_offsets(), device=dev)
+    shift = 1 - torch.tensor(pads, device=dev)
+    num = coords[None] - offs[:, None] - shift                # (K, N_in, 3)
+    even = (num % 2 == 0).all(-1, keepdim=True)
+    # an odd offset lands between outputs: -1 lies outside the grid
+    oc = torch.where(even, torch.div(num, 2, rounding_mode="floor"), -1)
+    return _lookup(ids, batch[None].expand(len(offs), -1), oc, out_dims)
+
+
+# ---- the card's builders: csrc/sparse_tables.cu --------------------------
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "futuredet_make_grid": [_P, _I, _P, _L] + [_I] * 4 + [_P] * 7,
+    "futuredet_downsample_mark": [_P, _P, _L] + [_I] * 7 + [_P] * 4,
+    "futuredet_downsample_compact": [_P] + [_I] * 4 + [_P] * 4,
+    "futuredet_sparse_table": [_I, _P, _P, _L] + [_I] * 6
+    + [_P, _I, _I, _P, _P],
+}
+
+
+def _launch(entry: str, *args) -> None:
+    fn = getattr(_build.load(_SRC), entry)
+    fn.argtypes = _ARGTYPES[entry]
+    fn.restype = ctypes.c_int
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+
+
+def _check_card(*tensors: Optional[Tensor]) -> None:
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError("the card's table builders take contiguous "
+                             "tensors")
+
+
+def _check_sites(coords: Tensor, batch: Tensor) -> None:
+    if coords.dtype != torch.int64 or batch.dtype != torch.int64:
+        raise ValueError("a grid's coords and batch must be int64")
+
+
+def _check_map(sitemap: Tensor, dims) -> None:
+    if (sitemap.dtype != torch.int32 or sitemap.dim() != 3
+            or sitemap.shape[1:] != (sitemap_words(dims), 2)):
+        raise ValueError(f"sitemap must be (B, {sitemap_words(dims)}, 2) "
+                         f"int32 for dims {tuple(dims)}, got "
+                         f"{tuple(sitemap.shape)} {sitemap.dtype}")
+
+
+def _empty_map(dims, batch_size: int, dev) -> Tuple[Tensor, Tensor]:
+    """A site map to fill and its scan's block sums."""
+    words = batch_size * sitemap_words(dims)
+    return (torch.empty((batch_size, sitemap_words(dims), 2),
+                        dtype=torch.int32, device=dev),
+            torch.empty(-(-words // SCAN_WORDS), dtype=torch.int32,
+                        device=dev))
+
+
+def _make_grid_cuda(coords: Tensor, batch: Optional[Tensor], dims,
+                    batch_size: int):
+    if coords.dtype not in (torch.int32, torch.int64) or (
+            batch is not None and batch.dtype != torch.int64):
+        raise ValueError("make_grid takes int32 or int64 coords and an "
+                         "int64 batch")
+    _check_card(coords, batch)
+    n, dev = coords.shape[0], coords.device
+    sitemap, sums = _empty_map(dims, batch_size, dev)
+    out = [torch.empty((n, 3), dtype=torch.int64, device=dev)] + [
+        torch.empty(n, dtype=torch.int64, device=dev) for _ in range(3)]
+    with torch.cuda.device(dev):
+        _launch("futuredet_make_grid", coords.data_ptr(),
+                coords.element_size(),
+                None if batch is None else batch.data_ptr(), n, *dims,
+                batch_size, sitemap.data_ptr(), sums.data_ptr(),
+                *(t.data_ptr() for t in out))
+    make_grid.launches += 1
+    return (*out, sitemap)
+
+
+def _downsample_coords_cuda(coords: Tensor, batch: Tensor, out_dims, pads,
+                            batch_size: int):
+    _check_sites(coords, batch)
+    _check_card(coords, batch)
+    dev = coords.device
+    sitemap, sums = _empty_map(out_dims, batch_size, dev)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("futuredet_downsample_mark", coords.data_ptr(),
+                batch.data_ptr(), coords.shape[0], *out_dims, *pads,
+                batch_size, sitemap.data_ptr(), sums.data_ptr(),
+                total.data_ptr())
+        n = int(total)        # the one host sync: the count sizes the sites
+        out = (torch.empty((n, 3), dtype=torch.int64, device=dev),
+               torch.empty(n, dtype=torch.int64, device=dev),
+               torch.empty(n, dtype=torch.int64, device=dev))
+        if n:
+            _launch("futuredet_downsample_compact", sitemap.data_ptr(),
+                    batch_size, *out_dims, *(t.data_ptr() for t in out))
+    downsample_coords.launches += 1
+    return (*out, sitemap)
+
+
+def _table_cuda(kind: int, coords: Tensor, batch: Tensor, ids: Tensor,
+                sitemap: Tensor, dims, shift) -> Tensor:
+    _check_sites(coords, batch)
+    _check_map(sitemap, dims)
+    _check_card(coords, batch, sitemap)
+    n = coords.shape[0]
+    table = torch.empty((K_TAPS, n), dtype=torch.int32, device=coords.device)
+    if n:
+        with torch.cuda.device(coords.device):
+            _launch("futuredet_sparse_table", kind, coords.data_ptr(),
+                    batch.data_ptr(), n, *dims, *shift, sitemap.data_ptr(),
+                    sitemap.shape[0], ids.shape[0], table.data_ptr())
+    return table
+
+
+def _neighbor_table_cuda(coords: Tensor, batch: Tensor, ids: Tensor,
+                         sitemap: Tensor, dims) -> Tensor:
+    table = _table_cuda(_SUBM, coords, batch, ids, sitemap, dims, (0, 0, 0))
+    neighbor_table.launches += 1
+    return table
+
+
+def _strided_gather_table_cuda(coords: Tensor, batch: Tensor, ids: Tensor,
+                               sitemap: Tensor, dims, pads) -> Tensor:
+    table = _table_cuda(_STRIDED, coords, batch, ids, sitemap, dims,
+                        [1 - p for p in pads])
+    strided_gather_table.launches += 1
+    return table
+
+
+def _strided_inverse_table_cuda(coords: Tensor, batch: Tensor, ids: Tensor,
+                                sitemap: Tensor, out_dims, pads) -> Tensor:
+    table = _table_cuda(_INVERSE, coords, batch, ids, sitemap, out_dims,
+                        [p - 1 for p in pads])
+    strided_inverse_table.launches += 1
+    return table
+
+
+# ---- fake implementations: shapes for tracing ----------------------------
+
+def _make_grid_fake(coords: Tensor, batch: Optional[Tensor], dims,
+                    batch_size: int):
+    n = coords.shape[0]
+    return (coords.new_empty((n, 3), dtype=torch.int64),
+            *(coords.new_empty(n, dtype=torch.int64) for _ in range(3)),
+            coords.new_empty((batch_size, sitemap_words(dims), 2),
+                             dtype=torch.int32))
+
+
+def _table_fake(coords: Tensor, *args) -> Tensor:
+    return coords.new_empty((K_TAPS, coords.shape[0]), dtype=torch.int32)
+
+
+def _downsample_coords_fake(coords: Tensor, batch: Tensor, out_dims, pads,
+                            batch_size: int):
+    n = torch.library.get_ctx().new_dynamic_size()
+    return (coords.new_empty((n, 3), dtype=torch.int64),
+            coords.new_empty(n, dtype=torch.int64),
+            coords.new_empty(n, dtype=torch.int64),
+            coords.new_empty((batch_size, sitemap_words(out_dims), 2),
+                             dtype=torch.int32))
+
+
+_LIB = torch.library.Library("futuredet", "FRAGMENT")
+_TABLE = ("(Tensor coords, Tensor batch, Tensor ids, Tensor sitemap, "
+          "int[] dims{}) -> Tensor")
+for _name, _schema, _cpu, _cuda, _fake in (
+        ("make_grid", "(Tensor coords, Tensor? batch, int[] dims, "
+         "int batch_size) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+         _make_grid_cpu, _make_grid_cuda, _make_grid_fake),
+        ("neighbor_table", _TABLE.format(""), _neighbor_table_cpu,
+         _neighbor_table_cuda, _table_fake),
+        ("downsample_coords", "(Tensor coords, Tensor batch, int[] out_dims, "
+         "int[] pads, int batch_size) -> (Tensor, Tensor, Tensor, Tensor)",
+         _downsample_coords_cpu, _downsample_coords_cuda,
+         _downsample_coords_fake),
+        ("strided_gather_table", _TABLE.format(", int[] pads"),
+         _strided_gather_table_cpu, _strided_gather_table_cuda, _table_fake),
+        ("strided_inverse_table", _TABLE.format(", int[] pads"),
+         _strided_inverse_table_cpu, _strided_inverse_table_cuda,
+         _table_fake)):
+    _LIB.define(_name + _schema)
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"futuredet::{_name}", _fake, lib=_LIB)
+_OPS = torch.ops.futuredet
+
+
+# ---- the builders --------------------------------------------------------
+
+def make_grid(coords: torch.Tensor, dims, batch: torch.Tensor = None,
+              batch_size: int = None) -> Tuple[SparseGrid, torch.Tensor]:
+    """coords (N, 3) int zyx of distinct sites inside `dims`, in any order,
+    batch (N,) sample index (default 0) of a batch of `batch_size` samples
+    (default: 1 + the largest index, which a card tensor reads with a host
+    sync) -> (sorted SparseGrid, the sorting permutation). A site outside
+    the grid or the batch, or two in one cell, raise ValueError on the CPU
+    and fail a device-side assert on the card."""
+    if batch_size is None:
+        batch_size = (1 if batch is None or batch.numel() == 0
+                      else int(batch.max()) + 1)
+    if coords.dtype not in (torch.int32, torch.int64):
+        coords = coords.to(torch.int64)
+    if batch is not None:
+        batch = batch.to(torch.int64)
+    c, b, ids, order, sitemap = _OPS.make_grid(coords, batch, list(dims),
+                                               batch_size)
+    return SparseGrid(c, b, ids, sitemap), order
+
+
+def neighbor_table(grid: SparseGrid, dims) -> torch.Tensor:
+    """(27, N) int32 submanifold gather table; N where a neighbour is
     absent."""
-    offs = torch.tensor(_offsets(kernel), device=grid.coords.device)
-    q = grid.coords[None] + offs[:, None]                     # (K, N, 3)
-    return _lookup(grid, grid.batch[None].expand(len(offs), -1), q, dims)
+    return _OPS.neighbor_table(grid.coords, grid.batch, grid.ids,
+                               grid.sitemap, list(dims))
 
 
 def out_dims_of(dims, pads) -> Tuple[int, int, int]:
@@ -104,44 +422,22 @@ def downsample_coords(grid: SparseGrid, out_dims,
     rule, `scn.py:109-146`). Per axis, input p reaches q = (p + pad - k) / 2
     for k in {0, 1, 2} of matching parity: hi = (p + pad) // 2 always, and
     hi - 1 when p + pad is even, so each site yields up to 8 candidates.
-    `torch.unique` of the candidates gives every output site once, in
-    ascending id order. Nothing is dropped."""
-    dev = grid.coords.device
-    p = grid.coords + torch.tensor(pads, device=dev)
-    hi = torch.div(p, 2, rounding_mode="floor")
-    has2 = (p % 2) == 0
-    odz = torch.tensor(out_dims, device=dev)
-    total = math.prod(out_dims)
-    keys = []
-    for bz in (0, 1):
-        for by in (0, 1):
-            for bx in (0, 1):
-                sel = torch.tensor([bz, by, bx], device=dev)
-                q = hi - sel
-                ok = ((q >= 0) & (q < odz)).all(-1)
-                ok &= ((sel == 0) | has2).all(-1)
-                keys.append((grid.batch * total + linear_ids(q, out_dims))[ok])
-    ids = torch.unique(torch.cat(keys))                       # sorted
-    b = torch.div(ids, total, rounding_mode="floor")
-    lin = ids - b * total
-    Y, X = out_dims[1], out_dims[2]
-    coords = torch.stack([lin // (Y * X), (lin // X) % Y, lin % X], -1)
-    return SparseGrid(coords, b, ids)
+    Every output site comes once, in ascending id order (the plain builder
+    takes `torch.unique` of the candidates). Nothing is dropped."""
+    return SparseGrid(*_OPS.downsample_coords(
+        grid.coords, grid.batch, list(out_dims), list(pads),
+        grid.sitemap.shape[0]))
 
 
 def strided_gather_table(in_grid: SparseGrid, out_grid: SparseGrid, dims,
-                         kernel: int = 3,
                          pads: Tuple[int, int, int] = (1, 1, 1)
                          ) -> torch.Tensor:
     """(K, N_out) int32 indices into the input sites of a kernel-3 stride-2
     conv: input position of output o at offset k is 2*o + k - pad. `dims`
     is the INPUT grid; absent entries hold N_in."""
-    dev = out_grid.coords.device
-    offs = torch.tensor(_offsets(kernel), device=dev)
-    shift = 1 - torch.tensor(pads, device=dev)
-    c = 2 * out_grid.coords[None] + offs[:, None] + shift      # (K, N, 3)
-    return _lookup(in_grid, out_grid.batch[None].expand(len(offs), -1), c,
-                   dims)
+    return _OPS.strided_gather_table(out_grid.coords, out_grid.batch,
+                                     in_grid.ids, in_grid.sitemap,
+                                     list(dims), list(pads))
 
 
 def scatter_dense(features: torch.Tensor, grid: SparseGrid, dims,
@@ -154,7 +450,7 @@ def scatter_dense(features: torch.Tensor, grid: SparseGrid, dims,
 
 
 def strided_inverse_table(in_grid: SparseGrid, out_grid: SparseGrid,
-                          out_dims, kernel: int = 3,
+                          out_dims,
                           pads: Tuple[int, int, int] = (1, 1, 1)
                           ) -> torch.Tensor:
     """(K, N_in) int32 indices into the OUTPUT sites of a kernel-3 stride-2
@@ -163,15 +459,16 @@ def strided_inverse_table(in_grid: SparseGrid, out_grid: SparseGrid,
     where there is none. Each input feeds at most one output per offset
     (the parity must match), so the transpose of a strided conv is again a
     gather-conv. Port of `futuredet_tpu/ops/sparse_conv.py:698-725`."""
-    dev = in_grid.coords.device
-    offs = torch.tensor(_offsets(kernel), device=dev)
-    shift = 1 - torch.tensor(pads, device=dev)
-    num = in_grid.coords[None] - offs[:, None] - shift        # (K, N_in, 3)
-    even = (num % 2 == 0).all(-1, keepdim=True)
-    # an odd offset lands between outputs: -1 lies outside the grid
-    oc = torch.where(even, torch.div(num, 2, rounding_mode="floor"), -1)
-    return _lookup(out_grid, in_grid.batch[None].expand(len(offs), -1), oc,
-                   out_dims)
+    return _OPS.strided_inverse_table(in_grid.coords, in_grid.batch,
+                                      out_grid.ids, out_grid.sitemap,
+                                      list(out_dims), list(pads))
+
+
+# each builder's `.launches` counts the calls of its CUDA implementation
+TABLE_BUILDERS = (make_grid, neighbor_table, downsample_coords,
+                  strided_gather_table, strided_inverse_table)
+for _fn in TABLE_BUILDERS:
+    _fn.launches = 0
 
 
 def bf16_truncate(x: torch.Tensor) -> torch.Tensor:

@@ -310,6 +310,37 @@ def test_dx_operands_are_those_of_subm_conv_dx(strided):
                        sc.subm_conv_dx(dy, table, w, inv))
 
 
+def test_table_recorder_and_the_plain_check(monkeypatch):
+    """Phases 6 and 10 record the builders' calls through the operators;
+    phases 7 and 11 hold each to the plain builder, and a table off by
+    one entry fails."""
+    from futuredet_torch.ops import sparse_conv as sc
+    rec = cs.TableRecorder(sc._OPS)
+    monkeypatch.setattr(sc, "_OPS", rec)
+    rng = np.random.default_rng(4)
+    dims, pads = (7, 10, 12), (0, 1, 1)
+    lin = rng.choice(int(np.prod(dims)), 200, replace=False)
+    coords = torch.from_numpy(np.stack(np.unravel_index(lin, dims), -1))
+    grid, _ = sc.make_grid(coords, dims)
+    out_dims = sc.out_dims_of(dims, pads)
+    out = sc.downsample_coords(grid, out_dims, pads)
+    sc.neighbor_table(grid, dims)
+    sc.strided_gather_table(grid, out, dims, pads=pads)
+    rec.on = False
+    sc.strided_inverse_table(grid, out, out_dims, pads=pads)
+    assert rec.builds == 5
+    assert [c[0] for c in rec.calls] == [
+        "make_grid", "downsample_coords", "neighbor_table",
+        "strided_gather_table"]
+    lines, same = cs.tables_vs_plain(rec.calls)
+    assert same and all(ln["bit_identical"] for ln in lines)
+    assert lines[0]["shapes"][-1] == [1, sc.sitemap_words(dims), 2]
+    rec.calls[3][2][5, 7] += 1               # one strided gather entry
+    lines, same = cs.tables_vs_plain(rec.calls)
+    assert not same
+    assert [ln["bit_identical"] for ln in lines] == [True] * 3 + [False]
+
+
 @pytest.fixture
 def train_phases_on_the_cpu(monkeypatch):
     """chip_smoke's training phases on the CPU: the small VoxelNet of
@@ -356,8 +387,14 @@ def test_voxelnet_train_phases_rehearse_on_the_cpu(train_phases_on_the_cpu):
     assert out["k1_launches"] == 0 and out["dx_max_abs_err"] < 1e-5
     phases = [ln.get("phase") for ln in lines]
     assert phases.count("train_main_path") == cs.TRAIN_STEPS + 1
-    assert phases[-3:] == ["k2_backward_vs_plain", "train_cpu_cross_check",
-                           "train_times"]
+    assert phases[-4:] == ["k2_backward_vs_plain", "tables_vs_plain",
+                           "train_cpu_cross_check", "train_times"]
+    # the CPU runs the plain builders: 14 builds a step, none on a card
+    builds = lines[-3]["builds"]
+    assert len(builds) == cs.TABLE_BUILDS["step"]
+    assert all(b["bit_identical"] and b["device"] == "cpu" for b in builds)
+    assert [b["op"] for b in builds].count("strided_inverse_table") == 3
+    assert out["table_launches"] == 0
     assert lines[-2]["loss_rel_err"] == 0.0
     assert lines[-2]["reference"] == "cpu_float32"
 
