@@ -4471,9 +4471,10 @@ def export_config_of(name, knob):
 def export_path(dev, card, work):
     """Phase 35: each of EXPORT_PROGRAMS through `tools export --check`
     (`tools.export_config` for a knob: the CLI names configs only), its
-    operator nodes counted, the loaded program against eager on phase 4's
-    or 8's scene, bit for bit, K1 and K2 counted on both. Returns the
-    launches of the exported programs' scenes."""
+    operator nodes counted, the loaded program against eager (its eval
+    BatchNorms unfolded, as exported) on phase 4's or 8's scene, bit for
+    bit, K1 and K2 counted on both. Returns the launches of the exported
+    programs' scenes."""
     import dataclasses
 
     from futuredet_torch.cli import tools
@@ -4526,7 +4527,9 @@ def export_path(dev, card, work):
         try:
             for route, fn in (("exported", exported), ("eager", program)):
                 k1.launches = k2.launches = 0
-                with torch.no_grad():
+                # eager as exported: autograd on keeps each eval BatchNorm
+                # after its conv (models/layers.py::BatchNorm2d.fold)
+                with torch.set_grad_enabled(route == "eager"):
                     runs[route] = fn(pts, valid)
                 torch.cuda.synchronize()
                 runs[route + "_launches"] = (k1.launches, k2.launches)

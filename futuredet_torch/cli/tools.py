@@ -256,7 +256,8 @@ def export_config(cfg, out: str, device="cuda", batch_size: int = 1,
     """Export the forward + decode of `cfg`'s detector, weights drawn from
     seed 0, on `cfg.voxel.max_points` zero points a sample, to `out`. With
     `check`, load the artifact, run it once and assert that its outputs
-    equal the eager program's. Returns `out`."""
+    equal the eager program's with its BatchNorms unfolded, as exported.
+    Returns `out`."""
     import torch
 
     from ..models.detector import build_detector
@@ -278,7 +279,9 @@ def export_config(cfg, out: str, device="cuda", batch_size: int = 1,
         loaded = torch.export.load(out).module()
         with torch.no_grad():
             got = loaded(pts, pv)
-            want = program(pts, pv)
+        # eager as exported: autograd on keeps each eval BatchNorm after
+        # its conv, which no_grad would fold into it (models/layers.py)
+        want = program(pts, pv)
         for name, g, w in zip(("boxes", "scores", "labels", "valid"), got,
                               want):
             if not torch.equal(g, w):

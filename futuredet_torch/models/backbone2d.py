@@ -26,7 +26,7 @@ from torch import nn
 
 from ..utils.profiling import spanned
 from .layers import (BandPad2d, ConvBNReLU, DeconvBNReLU, SplitInputConv2d,
-                     conv_bn_relu)
+                     Stack, conv_bn_relu)
 
 
 class RPN(nn.Module):
@@ -52,7 +52,7 @@ class RPN(nn.Module):
             layers[1].after_band_pad = True
             for _ in range(n):
                 layers += conv_bn_relu(c, c, 3, 1, bias=False, **cd)
-            blocks.append(nn.Sequential(*layers))
+            blocks.append(Stack(*layers))
             k = i - self.upsample_start
             if k >= 0:
                 s = us_strides[k]

@@ -53,7 +53,7 @@ from ..config import HeadConfig
 from ..ops.deform import deform_conv2d
 from ..parallel.collectives import gather_rows_summed
 from ..utils.profiling import spanned
-from .layers import Conv2d, ConvBNReLU, conv_bn_relu
+from .layers import Conv2d, ConvBNReLU, Stack, conv_bn_relu
 
 Heads = Tuple[Tuple[str, Tuple[int, int]], ...]
 
@@ -87,7 +87,7 @@ class SepHead(nn.Module):
         branch_conv = in_channels if wide_head else head_conv
         cin = in_channels
         if forecast_feature:
-            self.forecast_conv = nn.Sequential(
+            self.forecast_conv = Stack(
                 *conv_bn_relu(cin, head_conv, 3, 1, bias=True, **cd),
                 *conv_bn_relu(head_conv, head_conv, 3, 1, bias=True, **cd))
             cin = head_conv
@@ -108,7 +108,7 @@ class SepHead(nn.Module):
                                        bias=True, **cd)
                 c = branch_conv
             layers.append(Conv2d(c, classes, final_kernel, padding=p, **cd))
-            self.add_module(name, nn.Sequential(*layers))
+            self.add_module(name, Stack(*layers))
 
     @torch.no_grad()
     def reset_init(self) -> None:
@@ -181,7 +181,7 @@ class DCNSepHead(nn.Module):
         self.init_bias = init_bias
         self.feature_adapt_cls = FeatureAdaption(in_channels, in_channels)
         self.feature_adapt_reg = FeatureAdaption(in_channels, in_channels)
-        self.cls_head = nn.Sequential(
+        self.cls_head = Stack(
             *conv_bn_relu(in_channels, head_conv, 3, 1, bias=True),
             Conv2d(head_conv, num_cls, 3, padding=1))
         self.task_head = SepHead(in_channels, heads, head_conv=head_conv,
@@ -223,7 +223,7 @@ class CenterHead(nn.Module):
                                       bias=True, compute_dtype=compute_dtype)
         if cfg.bev_map:
             # ref :338-343: 1 -> 16 -> 32 -> share on the (B, H, W, 1) map
-            self.bev_conv = nn.Sequential(
+            self.bev_conv = Stack(
                 *conv_bn_relu(1, 16, 3, 1, bias=True),
                 *conv_bn_relu(16, 32, 3, 1, bias=True),
                 *conv_bn_relu(32, share, 3, 1, bias=True))

@@ -30,6 +30,21 @@ group. A layer with `space` set and `banded` false runs whole on every
 rank of the space group (the prefix before the canvas): its statistics
 are averaged over the data group alone, the ranks of a space group
 holding the same ones.
+
+Eval BatchNorm folds into the conv before it (`Stack`, the container of
+every conv + BatchNorm2d + ReLU block): in eval at fp32 with autograd off,
+conv(x, W, b) then BatchNorm is conv(x, W s, (b - mean) s + beta), s =
+gamma / sqrt(var + eps) per output channel (dim 1 of a transposed conv's
+weight), so the BatchNorm kernel leaves the forward. The folded weights
+are plain cached tensors on the BatchNorm, computed once in float64 and
+rebuilt when any of their six sources changes (`BatchNorm2d.fold`); the
+parameters, buffers and state_dict keys are the unfolded ones. Training,
+`compute_dtype` (flax's order: a bf16 conv, then the BatchNorm in fp32),
+eval with autograd recording and `torch.export` keep the unfolded path,
+so an exported program computes what the eager model computes with
+autograd on. `folded` counts
+the conv forwards that ran with their BatchNorm folded, `fold_builds` the
+folded weights computed.
 """
 from __future__ import annotations
 
@@ -44,6 +59,10 @@ from ..parallel.collectives import halo_rows, pmean, psum, world_size
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; flax momentum 0.99
+
+# eval BatchNorm folding (module docstring)
+folded = 0
+fold_builds = 0
 
 
 def torch_dtype(name: Optional[str]) -> Optional[torch.dtype]:
@@ -113,7 +132,11 @@ class Conv2d(nn.Conv2d):
         return self.crop(F.conv2d(x, w, b, self.stride, pad, self.dilation,
                                   self.groups), crop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fold=None) -> torch.Tensor:
+        """`fold`: the (weight, bias) of this conv with the BatchNorm after
+        it folded in (`BatchNorm2d.fold`), in place of its own."""
+        if fold is not None:
+            return self.conv(self.cast(x), *fold)
         if self.compute_dtype is None or self.bias is None:
             return self.conv(self.cast(x), self.cast(self.weight),
                              self.cast(self.bias))
@@ -131,12 +154,14 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fold=None) -> torch.Tensor:
+        """`fold` as Conv2d's."""
         dt = self.compute_dtype or self.weight.dtype
-        return F.conv_transpose2d(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation)
+        w, b = fold or (self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+        return F.conv_transpose2d(x.to(dt), w, b, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 class BandPad2d(nn.ZeroPad2d):
@@ -168,10 +193,10 @@ class SplitInputConv2d(Conv2d):
     (scripts/torch_probe_stem.py)."""
     MAX_CIN = 128
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def conv(self, x, w, b) -> torch.Tensor:
         if self.in_channels <= self.MAX_CIN or self.groups != 1:
-            return super().forward(x)
-        (x, pad, crop), w = self.rows(self.cast(x)), self.cast(self.weight)
+            return super().conv(x, w, b)
+        x, pad, crop = self.rows(x)
         out = None
         for c0 in range(0, self.in_channels, self.MAX_CIN):
             y = F.conv2d(x[:, c0:c0 + self.MAX_CIN],
@@ -179,8 +204,7 @@ class SplitInputConv2d(Conv2d):
                          self.stride, pad, self.dilation)
             out = y if out is None else out + y
         out = self.crop(out, crop)
-        return (out if self.bias is None
-                else out + self.cast(self.bias)[:, None, None])
+        return out if b is None else out + b[:, None, None]
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -213,6 +237,56 @@ class BatchNorm2d(nn.BatchNorm2d):
                  **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        self._folded = None
+
+    def fold(self, conv: nn.Module):
+        """(weight, bias) of `conv` with this BatchNorm folded in, for a
+        conv whose output this BatchNorm normalises next, or None where
+        the fold does not apply: in training, under `compute_dtype`, with
+        autograd recording (the gradients reach the BatchNorm's parameters
+        through the unfolded path), or for a conv of another kind. Cached
+        against the six sources' identity, storage and version counter,
+        so that a load, an in-place edit, an optimizer step, a move and a
+        training forward each rebuild it, and a steady forward rebuilds
+        nothing. An exported program keeps the unfolded path: traced into
+        its graph, the fold would run on every call, a dozen small
+        kernels a conv."""
+        global folded, fold_builds
+        if (self.training or torch.is_grad_enabled()
+                or self.compute_dtype is not None
+                or not isinstance(conv, (Conv2d, ConvTranspose2d))
+                or conv.compute_dtype is not None
+                or torch.compiler.is_exporting()):
+            return None
+        # the dicts, not the attributes: nn.Module's __getattr__ costs the
+        # host a microsecond a name, and the pillar head is host-bound
+        p, q, r = conv._parameters, self._parameters, self._buffers
+        src = (p["weight"], p["bias"], q["weight"], q["bias"],
+               r["running_mean"], r["running_var"])
+        # the cache holds src, so no id in it is reused while it lives
+        stamp = [(id(t), t._version, t.data_ptr()) for t in src
+                 if t is not None]
+        cache = self._folded
+        if cache is None or cache[0] != stamp:
+            cache = self._folded = (stamp, src, self._fold_weights(conv))
+            fold_builds += 1
+        folded += 1
+        return cache[2]
+
+    def _fold_weights(self, conv: nn.Module):
+        """W s and (b - mean) s + beta in float64, rounded once to W's
+        dtype; s scales the output channels, dim 1 of a transposed conv's
+        (in, out, kh, kw) weight."""
+        w = conv.weight
+        s = self.weight.double() / torch.sqrt(
+            self.running_var.double() + self.eps)
+        shape = (1, -1, 1, 1) if isinstance(conv, ConvTranspose2d) \
+            else (-1, 1, 1, 1)
+        b = -self.running_mean.double()
+        if conv.bias is not None:
+            b = b + conv.bias.double()
+        return ((w.double() * s.reshape(shape)).to(w.dtype),
+                (b * s + self.bias.double()).to(w.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and (self.compute_dtype is not None
@@ -265,9 +339,10 @@ def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  bias: bool = True, padding: int = None,
                  conv=Conv2d, compute_dtype: Optional[torch.dtype] = None
                  ) -> List[nn.Module]:
-    """[conv, BatchNorm2d, ReLU]. Padding defaults to the explicit
-    symmetric (k-1)//2, which is torch's own: a stride-2 3x3 window starts
-    at -1, as the JAX package forces with explicit padding."""
+    """[conv, BatchNorm2d, ReLU], for a `Stack`. Padding defaults to the
+    explicit symmetric (k-1)//2, which is torch's own: a stride-2 3x3
+    window starts at -1, as the JAX package forces with explicit
+    padding."""
     p = (kernel - 1) // 2 if padding is None else padding
     return [conv(cin, cout, kernel, stride=stride, padding=p, bias=bias,
                  compute_dtype=compute_dtype),
@@ -276,7 +351,30 @@ def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
             nn.ReLU()]
 
 
-class ConvBNReLU(nn.Sequential):
+class Stack(nn.Sequential):
+    """nn.Sequential (the same keys) that runs a conv followed by a
+    BatchNorm2d as the conv alone, with the BatchNorm folded into its
+    weight and bias, wherever the BatchNorm allows (`BatchNorm2d.fold`);
+    the ReLU after stays. The folded conv is called as a module, with its
+    hooks; the BatchNorm then is not called."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layers = list(self)
+        i = 0
+        while i < len(layers):
+            bn = layers[i + 1] if i + 1 < len(layers) else None
+            fold = bn.fold(layers[i]) if isinstance(bn, BatchNorm2d) \
+                else None
+            if fold is None:
+                x = layers[i](x)
+                i += 1
+            else:
+                x = layers[i](x, fold=fold)
+                i += 2
+        return x
+
+
+class ConvBNReLU(Stack):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  bias: bool = True, conv=Conv2d,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -285,7 +383,7 @@ class ConvBNReLU(nn.Sequential):
                                        compute_dtype=compute_dtype))
 
 
-class DeconvBNReLU(nn.Sequential):
+class DeconvBNReLU(Stack):
     """k == stride transposed conv (the RPN "deblock"), no bias."""
 
     def __init__(self, cin: int, cout: int, stride: int,

@@ -11,6 +11,7 @@ import json
 import logging
 import os
 import pickle
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,8 @@ import torch
 from futuredet_tpu.data import feed as jax_feed
 from futuredet_torch.cli import evaluate, train
 from futuredet_torch.data import feed
+from futuredet_torch.models import layers
+from futuredet_torch.models.layers import BatchNorm2d
 from tests.test_torch_train_step import one_torch_thread  # noqa: F401
 
 MODEL = "pp_forecast_n3dtf"
@@ -437,7 +440,12 @@ def compare_with_the_jax_cli(model_name, extra, per_slice):
     the same tiny synthetic scenes with the fp32 feed and `extra` flags, in
     the current directory. Detections compared per pseudo-task slice
     (`match_timestep`'s let-off; with `per_slice` labels too), every
-    summary value within 1e-6. Returns the port's summary."""
+    summary value within 1e-6. The port runs each conv and then its eval
+    BatchNorm there, as the JAX CLI does: folded into the conv
+    (`models/layers.py::Stack`), the port rounds otherwise, by a few fp32
+    ulps of these summaries. Its folded run, as it serves by default, is
+    held to that run: the same detections in every slice. Returns the
+    port's summary."""
     from futuredet_tpu.cli import evaluate as jax_evaluate
     from futuredet_tpu.config import get_config as jax_get_config
     from futuredet_tpu.config import tiny_variant as jax_tiny_variant
@@ -469,22 +477,37 @@ def compare_with_the_jax_cli(model_name, extra, per_slice):
     want = jax_evaluate.main(common + [
         "--checkpoint_dir", "no_jax_ckpt", "--predictions_path", "j.pkl",
         "--out", "j.json"])
-    got = evaluate.main(common + [
-        "--device", "cpu", "--checkpoint_dir", "port_ckpt",
-        "--predictions_path", "p.pkl", "--out", "p.json"])
+    port = common + ["--device", "cpu", "--checkpoint_dir", "port_ckpt"]
+    with mock.patch.object(BatchNorm2d, "fold", lambda self, conv: None):
+        got = evaluate.main(port + ["--predictions_path", "p.pkl",
+                                    "--out", "p.json"])
+    folds = layers.folded
+    evaluate.main(port + ["--predictions_path", "f.pkl", "--out", "f.json"])
+    assert layers.folded > folds
 
     with open("j.pkl", "rb") as f:
         jsaved = pickle.load(f)
     with open("p.pkl", "rb") as f:
         psaved = pickle.load(f)
+    with open("f.pkl", "rb") as f:
+        fsaved = pickle.load(f)
     post = cfg.test.nms.post_max_size
     thr = cfg.test.nms.iou_threshold
     n, let_off = 0, []
-    for (det, _, tok), (jdet, _, jtok) in zip(psaved, jsaved):
+    for (det, _, tok), (jdet, _, jtok), (fdet, _, _) in zip(psaved, jsaved,
+                                                           fsaved):
         assert tok == jtok
         for t in range(det.valid.shape[1] // post):
             sl = slice(t * post, (t + 1) * post)
             keep = det.valid[0, sl]
+            fkeep = fdet.valid[0, sl]
+            assert keep.sum() == fkeep.sum()
+            assert match_timestep(
+                fdet.boxes[0, sl][fkeep], fdet.scores[0, sl][fkeep],
+                det.boxes[0, sl][keep], det.scores[0, sl][keep], post,
+                thr) == []
+            np.testing.assert_array_equal(np.sort(fdet.labels[0, sl][fkeep]),
+                                          np.sort(det.labels[0, sl][keep]))
             jkeep = np.asarray(jdet.valid[0, sl])
             assert keep.sum() == jkeep.sum()
             n += int(keep.sum())

@@ -195,11 +195,38 @@ def exported(request, tmp_path_factory):
     return request.param, path
 
 
+# case -> the exported program's parameters, buffers and lifted constants,
+# as many as before eval BatchNorm folded into the convs
+SIGNATURES = {
+    "pp_forecast_n3dtf": (336, 195, 5),
+    "forecast_n0": (137, 102, 5),
+    "forecast_n3dtf dense_from_stage 0": (409, 252, 5),
+    "forecast_n3dtf dense_from_stage 2": (409, 252, 5),
+    "pp_forecast_n3dtf circular_nms": (336, 195, 4),
+}
+
+
+def test_export_keeps_its_parameter_lists(exported):
+    """The artifact's parameters and buffers are the eager program's, by
+    name and in order, and it lifts no more constants: an exported program
+    keeps each eval BatchNorm after its conv
+    (`models/layers.py::BatchNorm2d.fold`), no folded weight is baked in."""
+    from futuredet_torch.models.detector import build_detector
+    case, path = exported
+    sig = torch.export.load(path).graph_signature
+    cfg = export_case(case)
+    program = tools.inference_program(cfg, build_detector(cfg, "cpu"))
+    assert list(sig.parameters) == [n for n, _ in program.named_parameters()]
+    assert list(sig.buffers) == [n for n, _ in program.named_buffers()]
+    assert (len(sig.parameters), len(sig.buffers),
+            len(sig.lifted_tensor_constants)) == SIGNATURES[case]
+
+
 def test_export_roundtrip(exported):
     """The artifact loads (the package imported, as here), holds K1, the
     circle NMS and K2 as the registered operators, as many as the program
     runs, and gives the eager program's outputs on a scene of real
-    points."""
+    points, its eval BatchNorms unfolded as exported (autograd on)."""
     from futuredet_torch.data.synthetic import make_batch
     from futuredet_torch.models.detector import build_detector
     case, path = exported
@@ -217,7 +244,8 @@ def test_export_roundtrip(exported):
     program = tools.inference_program(cfg, build_detector(cfg, "cpu"))
     with torch.no_grad():
         got = ep.module()(pts, valid)
-        want = program(pts, valid)
+    # autograd on: eager with its BatchNorms unfolded, as exported
+    want = program(pts, valid)
     assert bool(want[3].any())
     for g, w in zip(got, want):
         assert torch.equal(g, w)
